@@ -1,0 +1,288 @@
+#!/usr/bin/env python3
+"""Smoke run of graphembedding_tpu_torch on one NVIDIA card.
+
+    python3 chip_smoke.py        # from the repository root, one CUDA card
+
+Phases, one or more lines each:
+  1. card: the name and power limit (nvidia-smi); no card -> exit 1;
+  2. build: compiles the CUDA kernels from graphembedding_tpu_torch/csrc;
+  3. kernels: K1 (SGNS block gradients), K2 (row scatter-add) and K3 (row
+     gather) against their plain PyTorch versions at the shapes of the
+     DeepWalk-on-Wiki step, with times (CUDA events, median of 20 runs);
+  4. step parity: four SGNS steps through the kernels against four
+     through the plain versions, from the same table and draws;
+  5. main path: load_dataset('wiki') -> DeepWalk(walk_length=10,
+     num_walks=80, device='cuda') -> train(embed_size=128, window_size=5,
+     iter=3) -> get_embeddings -> Classifier (0.8 split, seed 0); checks
+     that every kernel launched and micro-F1 >= 0.93.
+
+The last three lines are the kernels' JSON record, the card line and
+{"ok": true, "device": {...}}. Any failure exits non-zero before them.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+MIN_MICRO_F1 = 0.93  # expected of DeepWalk on the Wiki-scale graph
+DEVICE = "cuda"
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, runs=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_err(got, want, rtol, atol, what):
+    """Max |got - want|; fails unless allclose(rtol, atol)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite values")
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    if bad.any():
+        fail(f"{what}: {int(bad.sum())} elements outside rtol={rtol} "
+             f"atol={atol}, max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def main():
+    import torch
+
+    # 1. card
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs a CUDA card")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+
+    try:
+        import graphembedding_tpu_torch as pkg
+    except ImportError as e:
+        fail(f"graphembedding_tpu_torch not importable beside this "
+             f"script: {e}")
+    if not os.path.abspath(pkg.__file__).startswith(HERE + os.sep):
+        fail(f"graphembedding_tpu_torch comes from {pkg.__file__}, not "
+             f"from this checkout")
+    from graphembedding_tpu_torch import DeepWalk
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.kernels import build as kb
+    from graphembedding_tpu_torch.ops.rows import (
+        gather_rows, gather_rows_plain, scatter_add_rows,
+        scatter_add_rows_plain)
+    from graphembedding_tpu_torch.ops.sgns import (
+        sgns_block_grads, sgns_block_grads_plain)
+    from graphembedding_tpu_torch.ops.walk import simulate_walks
+    from graphembedding_tpu_torch.train import skipgram as sg
+
+    # 2. build
+    t0 = time.perf_counter()
+    kb.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{kb.build_log['seconds']} s) -> {kb.library_path()}",
+          flush=True)
+    for line in kb.build_log["ptxas"].splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    # 3. kernels against plain versions at the slice's shapes
+    ds = load_dataset("wiki")
+    V, D, L, W, K, nsp = ds.graph.num_nodes, 128, 10, 5, 64, 4
+    NW = 80 * V
+    gen = torch.Generator(device=dev).manual_seed(1)
+    walks = simulate_walks(ds.graph.to(dev), 80, L, generator=gen)
+    if tuple(walks.shape) != (NW, L):
+        fail(f"corpus shape {tuple(walks.shape)}")
+    geo = sg.block_geometry(NW, L, 4032, nsp)
+    w_cat = (torch.rand((V, 2 * D), generator=gen, device=dev) - 0.5) / D
+    w_cat[:, D:] = torch.randn((V, D), generator=gen, device=dev) * 0.05
+    eff = W - (torch.rand((4, geo.G, geo.PL), generator=gen, device=dev)
+               * W).to(torch.int32).clamp(0, W - 1)
+    negs = torch.randint(0, V, (4, geo.G2, K), generator=gen, device=dev,
+                         dtype=torch.int32)
+    window_ok, dm = sg.window_geometry(L, geo.PL, W, dev)
+    tok = walks[:geo.Bw].reshape(geo.G, geo.PL)
+    tok_safe, y, vn, mask, neg_ok = sg.step_inputs(
+        w_cat, tok, eff[0], negs[0], window_ok, dm, nsp, ops=sg.PLAIN)
+    # the gather reads pads as row 0; the scatter drops them (-1)
+    flat, nflat = tok_safe.reshape(-1), negs[0].reshape(-1)
+    sflat = tok.reshape(-1)
+    neg_w = 5.0 / K
+    print(f"shapes: V={V} NW={NW} Bw={geo.Bw} G={geo.G} PL={geo.PL} D={D} "
+          f"K={K} G2={geo.G2} tokens={flat.numel()} negatives="
+          f"{nflat.numel()}", flush=True)
+
+    records = []
+
+    def record(name, source, replaces, err, ms, plain_ms):
+        records.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=None,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        print(f"kernel {name}: max_abs_err {err:.3e}, {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms [{card}]", flush=True)
+
+    # K3: bit-exact
+    got = gather_rows(w_cat, flat)
+    got_n = gather_rows(w_cat[:, D:], nflat)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, gather_rows_plain(w_cat, flat))
+            and torch.equal(got_n, gather_rows_plain(w_cat[:, D:], nflat))):
+        fail("gather_rows differs from table[ids]")
+    record("gather_rows", "graphembedding_tpu_torch/csrc/rows.cu",
+           "graphembedding_tpu/ops/pallas_scatter.py:261", 0.0,
+           median_ms(lambda: gather_rows(w_cat, flat)),
+           median_ms(lambda: gather_rows_plain(w_cat, flat)))
+    ms_n = median_ms(lambda: gather_rows(w_cat[:, D:], nflat))
+    pl_n = median_ms(lambda: gather_rows_plain(w_cat[:, D:], nflat))
+    print(f"  gather_rows negatives [{nflat.numel()}, {D}]: {ms_n:.4f} ms "
+          f"vs plain {pl_n:.4f} ms")
+
+    # K1
+    args = (y[..., :D], y[..., D:], vn, mask, neg_ok, neg_w)
+    got = sgns_block_grads(*args)
+    want = sgns_block_grads_plain(*args)
+    torch.cuda.synchronize()
+    err = max(max_err(g, w, 2e-4, 1e-5, f"sgns_block_grads {n}")
+              for g, w, n in zip(got, want, ("d_yin", "d_yout", "d_vn",
+                                             "loss")))
+    record("sgns_block_grads", "graphembedding_tpu_torch/csrc/sgns.cu",
+           "graphembedding_tpu/ops/pallas_sgns.py:42", err,
+           median_ms(lambda: sgns_block_grads(*args)),
+           median_ms(lambda: sgns_block_grads_plain(*args)))
+
+    # K2: held against the plain version's sequential sum on the CPU, which
+    # sums each row in the same order (the plain version on the card sums
+    # with atomics, in an order that changes from run to run)
+    d_yin, d_yout, d_vn, _ = want
+    ones = torch.ones((flat.numel(), 1), device=dev)
+    d_tok = torch.cat([d_yin.reshape(-1, D), d_yout.reshape(-1, D), ones], 1)
+    d_neg = torch.cat([d_vn.reshape(-1, D), ones[:nflat.numel()]], 1)
+    errs = []
+    for ids, grads in ((sflat, d_tok), (nflat, d_neg)):
+        buf = torch.zeros((V, grads.shape[1]), device=dev)
+        got = scatter_add_rows(buf.clone(), ids, grads)
+        again = scatter_add_rows(buf.clone(), ids, grads)
+        want_s = scatter_add_rows_plain(buf.cpu(), ids.cpu(), grads.cpu())
+        torch.cuda.synchronize()
+        errs.append(max_err(got.cpu(), want_s, 1e-5, 1e-6,
+                            "scatter_add_rows"))
+        print(f"  scatter_add_rows [{ids.numel()}, {grads.shape[1]}]: "
+              f"bit-equal to the CPU plain version: "
+              f"{torch.equal(got.cpu(), want_s)}, run to run: "
+              f"{torch.equal(got, again)}")
+    tbuf = torch.zeros((V, 2 * D + 1), device=dev)
+    record("scatter_add_rows", "graphembedding_tpu_torch/csrc/rows.cu",
+           "graphembedding_tpu/ops/pallas_scatter.py:67", max(errs),
+           median_ms(lambda: scatter_add_rows(tbuf, sflat, d_tok)),
+           median_ms(lambda: scatter_add_rows_plain(tbuf, sflat, d_tok)))
+    nbuf = torch.zeros((V, D + 1), device=dev)
+    ms_n = median_ms(lambda: scatter_add_rows(nbuf, nflat, d_neg))
+    pl_n = median_ms(lambda: scatter_add_rows_plain(nbuf, nflat, d_neg))
+    print(f"  scatter_add_rows negatives [{nflat.numel()}, {D + 1}]: "
+          f"{ms_n:.4f} ms vs plain {pl_n:.4f} ms")
+
+    # 4. four steps through the kernels against four plain steps
+    kw = dict(block_walks=4032, window=W, negative=5, neg_share_packs=nsp)
+    a, la, pa = sg.sgns_block_chunk_cat(w_cat.clone(), walks, eff, negs,
+                                        0.025, 1e-4, 0, 192.0, **kw)
+    b, lb, pb = sg.sgns_block_chunk_cat(w_cat.clone(), walks, eff, negs,
+                                        0.025, 1e-4, 0, 192.0, ops=sg.PLAIN,
+                                        **kw)
+    torch.cuda.synchronize()
+    step_err = max_err(a, b, 1e-4, 1e-6, "four steps: table")
+    max_err(la, lb, 1e-4, 1e-6, "four steps: loss")
+    if not torch.equal(pa, pb):
+        fail("four steps: pair counts differ")
+    print(f"step parity: 4 steps, table max abs err {step_err:.3e}, "
+          f"moved by {float((a - w_cat).abs().max()):.3e}", flush=True)
+
+    # 5. the main path, counting launches
+    kernels = (sgns_block_grads, scatter_add_rows, gather_rows)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = load_dataset("wiki")
+    t1 = time.perf_counter()
+    model = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    model.train(embed_size=128, window_size=5, iter=3)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    emb = model.get_embeddings()
+    res = Classifier(emb).split_train_evaluate(ds.X, ds.Y, 0.8, seed=0)
+    t4 = time.perf_counter()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"main path launches: {launches}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} never launched on the main path")
+    for r in records:
+        r["launches"] = launches[r["name"]]
+
+    table = model.embedding_table
+    if tuple(table.shape) != (V, 128) or not torch.isfinite(table).all():
+        fail(f"embeddings: shape {tuple(table.shape)} or non-finite")
+    if len(emb) != V:
+        fail(f"get_embeddings gave {len(emb)} nodes, want {V}")
+    edges = int((model.walks[:, 1:] >= 0).sum())
+    walk_s, train_s = t2 - t1, t3 - t2
+    print(f"main path: dataset {t1 - t0:.3f} s, walks {walk_s:.4f} s, "
+          f"train {train_s:.4f} s, classify {t4 - t3:.3f} s; "
+          f"final loss {float(model.losses[-1]):.4f}", flush=True)
+    print(f"walked edges/s: {edges / walk_s:.4e} ({edges} edges) [{card}]")
+    print(f"trained pairs/s: {model.trained_pairs / train_s:.4e} "
+          f"({model.trained_pairs:.0f} pairs) [{card}]")
+    print(f"micro-F1: {res['micro']:.4f}, macro-F1: {res['macro']:.4f} "
+          f"[{card}]", flush=True)
+    if not res["micro"] >= MIN_MICRO_F1:
+        fail(f"micro-F1 {res['micro']:.4f} < {MIN_MICRO_F1}")
+    if "jax" in sys.modules:
+        fail("jax was imported")
+
+    print(json.dumps({"kernels": records}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""Build and load the CUDA kernels of `graphembedding_tpu_torch/csrc/`.
+
+The sources are compiled with `nvcc` for Hopper (`sm_90a`) into one shared
+library with a plain C interface, loaded with `ctypes`. The library goes to
+`graphembedding_tpu_torch/build/` under a name keyed by a hash of the
+sources and the compiler flags, so an edited source is rebuilt and an
+unchanged one is built once. The build happens at first use, never at
+import. A missing `nvcc` or a failed build raises: there is no fallback.
+
+Every C entry point takes its pointers and the CUDA stream as `void*` and
+returns the `cudaError_t` of its launch; `check` raises on a non-zero one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_float)
+# name -> argtypes of each C entry point (restype is int: cudaError_t)
+SIGNATURES = {
+    # device, yin, ld_yin, yout, ld_yout, vn, ld_vn, mask, neg_ok,
+    # d_yin, d_yout, d_vn, loss, G, G2, PL, D, K, neg_w, smem, stream
+    "ge_sgns_block_grads": [_I, _P, _I64, _P, _I64, _P, _I64, _P, _P,
+                            _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # device, table, ld, V, ids, N, C, out, stream
+    "ge_gather_rows": [_I, _P, _I64, _I, _P, _I, _I, _P, _P],
+    # device, table, ld, V, sorted_ids, order, grads, N, C, stream
+    "ge_scatter_add_rows": [_I, _P, _I64, _I, _P, _P, _P, _I, _I, _P],
+    "ge_error_string": [_I],
+}
+
+# what the last build took and printed (ptxas register / spill report)
+build_log = {"seconds": None, "ptxas": ""}
+
+
+def sources():
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc():
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(home, "bin", "nvcc")
+        nvcc = cand if os.path.exists(cand) else None
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or CUDA_HOME/bin): the CUDA kernels of "
+            "graphembedding_tpu_torch cannot be built")
+    return nvcc
+
+
+def library_path():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libge_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build():
+    """Compile the sources unless the library for their hash exists.
+    Returns the library's path."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [p for p in sources() if p.endswith(".cu")]
+    # compile to a temporary name, then rename: a concurrent process
+    # never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    build_log.update(seconds=time.perf_counter() - t0,
+                     ptxas=proc.stdout + proc.stderr)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "ge_error_string" else _I
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().ge_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,102 @@
+"""Shared machinery of the walk + skip-gram models.
+
+Counterpart of `graphembedding_tpu/models/base.py` (the walk-block SGNS
+trainer only). Models accept a networkx graph or a
+`graphembedding_tpu_torch.Graph`, and run on the `device` they are given.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from graphembedding_tpu_torch.graph import Graph
+from graphembedding_tpu_torch.train.skipgram import (
+    SkipGramConfig,
+    SkipGramTrainer,
+)
+
+# options of the JAX package's trainer that the port does not have
+_NOT_PORTED = ("cap_mode", "shuffle_mode", "use_pallas", "matmul_bf16",
+               "stale_groups", "rowshard_prefetch", "dp_sync_every",
+               "parallel_mode")
+
+
+def as_graph(graph) -> Graph:
+    return graph if isinstance(graph, Graph) else Graph.from_nx(graph)
+
+
+class WalkEmbeddingModel:
+    """Base of DeepWalk: walks -> SGNS -> embedding table."""
+
+    def __init__(self, graph, walk_length: int, num_walks: int,
+                 seed: int = 0, device="cpu"):
+        self.graph = as_graph(graph)
+        self.walk_length = walk_length
+        self.num_walks = num_walks
+        self.seed = seed
+        self.device = torch.device(device)
+        self.walks = None  # int32 [num_walks * V, walk_length] on device
+        self.w_in = None
+        self.w_out = None
+        self.losses = None
+        self.trained_pairs = 0.0
+        self._embeddings: Optional[Dict] = None
+
+    def _fit_skipgram(self, embed_size=128, window_size=5, workers=None,
+                      iter=5, negative=5, alpha=0.025, min_alpha=1e-4,
+                      block_walks=None, k_shared=64, sample=1e-3, mesh=None,
+                      hs=0, trainer="block", checkpoint_dir=None,
+                      checkpoint_every=0, metrics=None, **kwargs):
+        del workers, checkpoint_every
+        unsupported = {"hs": hs, "mesh": mesh,
+                       "checkpoint_dir": checkpoint_dir, "metrics": metrics}
+        for name, value in unsupported.items():
+            if value:
+                raise NotImplementedError(
+                    f"{name}= is not ported to graphembedding_tpu_torch")
+        if trainer != "block":
+            raise NotImplementedError(
+                f"trainer={trainer!r} is not ported; only 'block' is")
+        for name in _NOT_PORTED:
+            if name in kwargs:
+                raise NotImplementedError(
+                    f"{name}= is not ported to graphembedding_tpu_torch")
+        # kwargs that name config fields win over the explicit arguments,
+        # as in the JAX package; other kwargs are accepted and ignored
+        # (gensim keyword parity)
+        cfg_fields = {f.name for f in dataclasses.fields(SkipGramConfig)}
+        cfg_kw = dict(embed_size=embed_size, window=window_size,
+                      negative=negative, epochs=iter, k_shared=k_shared,
+                      alpha=alpha, min_alpha=min_alpha, sample=sample,
+                      seed=self.seed)
+        if block_walks is not None:
+            cfg_kw["block_walks"] = block_walks
+        cfg_kw.update({k: v for k, v in kwargs.items() if k in cfg_fields})
+        cfg = SkipGramConfig(**cfg_kw)
+        sgns = SkipGramTrainer(cfg)
+        w_cat, self.losses = sgns.fit(self.walks, self.graph.num_nodes,
+                                      seed=cfg.seed + 1)
+        D = cfg.embed_size
+        self.w_in, self.w_out = w_cat[:, :D], w_cat[:, D:]
+        self.trained_pairs = sgns.trained_pairs_
+        self._embeddings = None
+        return self
+
+    def get_embeddings(self) -> Dict:
+        """{node_name: np.ndarray[embed_size]}, the reference's type."""
+        if self._embeddings is None:
+            if self.w_in is None:
+                raise RuntimeError("call train() before get_embeddings()")
+            table = self.w_in.detach().cpu().numpy()
+            names = self.graph.vocab.idx2node
+            self._embeddings = {names[i]: table[i]
+                                for i in range(self.graph.num_nodes)}
+        return self._embeddings
+
+    @property
+    def embedding_table(self) -> torch.Tensor:
+        """The [V, D] input-embedding table on the model's device."""
+        return self.w_in

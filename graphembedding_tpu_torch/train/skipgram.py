@@ -1,0 +1,363 @@
+"""Walk-block skip-gram with negative sampling (SGNS) in PyTorch.
+
+Counterpart of `graphembedding_tpu/train/skipgram.py` (the block trainer
+with the dense update cap, one step at a time). Each step takes a block of
+Bw walks from the shuffled corpus, packs P = 128 // L walks into each of
+G groups of PL = P*L positions, gathers their rows of the fused [V, 2D]
+table (K3), scores all window pairs and K negatives shared by `nsp`
+consecutive groups (K1), and scatter-adds the gradients with a per-row
+occupancy count (K2) so each row's update is capped at `update_cap`
+sequential-update magnitudes.
+
+The random draws of a chunk of steps (`eff`, the dynamic window, and
+`negs`, the shared negatives) are inputs of `sgns_block_chunk_cat`, so a
+test can hand it the JAX package's draws; `SkipGramTrainer.fit` makes
+them with a `torch.Generator`.
+
+Not ported: the sparse cap form (the dense form computes the same update
+at any V), `stale_groups`, `use_pallas`/`matmul_bf16`,
+`shuffle_mode='block'`, the re-gathering epoch pass, checkpoints and
+metrics logging.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from graphembedding_tpu_torch.ops.rows import (
+    gather_rows,
+    gather_rows_plain,
+    scatter_add_rows,
+    scatter_add_rows_plain,
+)
+from graphembedding_tpu_torch.ops.sgns import (
+    sgns_block_grads,
+    sgns_block_grads_plain,
+)
+
+
+@dataclass
+class SkipGramConfig:
+    embed_size: int = 128
+    window: int = 5
+    negative: int = 5  # gensim-equivalent negatives per pair (expectation)
+    k_shared: int = 64  # shared negative rows drawn per sharing group
+    neg_share_packs: int = 4  # packing groups sharing one negative set
+    epochs: int = 5
+    block_walks: int = 4032  # walks per step (Bw), clamped to the corpus
+    alpha: float = 0.025
+    min_alpha: float = 1e-4
+    ns_exponent: float = 0.75
+    neg_table_size: int = 1 << 20
+    sample: float = 1e-3  # frequent-node subsampling threshold; 0 off
+    chunk_steps: int = 64  # steps per chunk of draws
+    update_cap: float = 8.0  # per-row cap in sequential-update magnitudes
+    seed: int = 0
+
+
+class StepOps(NamedTuple):
+    """The three kernels a step runs: row gather, row scatter-add, SGNS
+    block gradients."""
+
+    gather: object
+    scatter_add: object
+    grads: object
+
+
+KERNELS = StepOps(gather_rows, scatter_add_rows, sgns_block_grads)
+# the plain PyTorch versions, which the kernels are held against
+PLAIN = StepOps(gather_rows_plain, scatter_add_rows_plain,
+                sgns_block_grads_plain)
+
+
+def negative_table(counts: np.ndarray, exponent: float = 0.75,
+                   size: int = 1 << 20) -> np.ndarray:
+    """Pre-sampled unigram^exponent table (word2vec's lookup table),
+    built in float64: `table[U{0..size}]` draws from counts^exponent."""
+    p = np.power(np.maximum(counts, 0.0), exponent)
+    total = p.sum()
+    if total <= 0:
+        p = np.ones_like(p)
+        total = p.sum()
+    cum = np.cumsum(p) / total
+    return np.searchsorted(
+        cum, (np.arange(size) + 0.5) / size, side="left").astype(np.int32)
+
+
+def subsample_keep_probs(counts: np.ndarray, sample: float):
+    """word2vec keep-probabilities (sqrt(f/sample) + 1) * sample/f,
+    clipped to 1, for corpus frequency f; None when sample <= 0."""
+    if sample <= 0:
+        return None
+    total = max(float(counts.sum()), 1.0)
+    f = counts / total
+    with np.errstate(divide="ignore", invalid="ignore"):
+        p = (np.sqrt(f / sample) + 1.0) * (sample / f)
+    return np.where(f > 0, np.minimum(p, 1.0), 0.0).astype(np.float32)
+
+
+def corpus_counts(walks: torch.Tensor, num_nodes: int) -> np.ndarray:
+    """Node frequency in the walk corpus (pads masked), float64 on host."""
+    ids = walks.reshape(-1)
+    ids = ids[ids >= 0].long()
+    return torch.bincount(ids, minlength=num_nodes).cpu().numpy().astype(
+        np.float64)
+
+
+def _subsample_compact(w, kprob, u):
+    """Drop tokens where u >= kprob (and pads), then left-compact each
+    walk, keeping order; dropped tail positions become -1.
+
+    The stable partition of the JAX package's keyed sort, written as a
+    scatter to positions from two prefix sums.
+    """
+    km = (w >= 0) & (u < kprob)
+    kept_pos = torch.cumsum(km.to(torch.int64), dim=1) - 1
+    n_kept = kept_pos[:, -1:] + 1
+    drop_pos = n_kept + torch.cumsum((~km).to(torch.int64), dim=1) - 1
+    pos = torch.where(km, kept_pos, drop_pos)
+    out = torch.empty_like(w)
+    return out.scatter_(1, pos, torch.where(km, w, -1))
+
+
+class BlockGeometry(NamedTuple):
+    Bw: int  # walks per step, rounded to whole packing groups
+    P: int  # walks per packing group
+    G: int  # packing groups per step
+    PL: int  # positions per packing group
+    n_blocks: int  # blocks per pass over the corpus
+    nsp: int  # packing groups sharing one negative set
+    G2: int  # sharing groups per step
+
+
+def block_geometry(NW: int, L: int, block_walks: int,
+                   neg_share_packs: int) -> BlockGeometry:
+    """The packing of `sgns_block_chunk_cat`: P = 128 // L walks per
+    group, the block clamped to the corpus and rounded down to whole
+    groups, `nsp` lowered toward 1 until it divides G."""
+    Bw = min(block_walks, NW)
+    P = max(min(max(128 // L, 1), Bw), 1)
+    G = Bw // P
+    Bw = G * P
+    nsp = max(int(neg_share_packs), 1)
+    while G % nsp:
+        nsp -= 1
+    return BlockGeometry(Bw, P, G, P * L, max(NW // Bw, 1), nsp, G // nsp)
+
+
+def window_geometry(L: int, PL: int, window: int, device):
+    """Static [PL, PL] window of a packing group: `window_ok` (same walk,
+    1 <= |offset| <= window) and `dm` (|offset| within the walk)."""
+    i = torch.arange(PL, device=device)[:, None]
+    j = torch.arange(PL, device=device)[None, :]
+    dm = (j % L - i % L).abs()
+    window_ok = (i // L == j // L) & (dm >= 1) & (dm <= window)
+    return window_ok, dm
+
+
+def step_inputs(w_cat, tok, eff_b, neg, window_ok, dm, nsp, ops=KERNELS):
+    """Gathered rows and masks of one block.
+
+    tok [G, PL] token ids (-1 pads), eff_b [G, PL] window draws, neg
+    [G2, K] negative ids. Returns (tok_safe, y [G, PL, 2D], vn [G2, K, D],
+    mask, neg_ok) with mask [G, PL, PL] and neg_ok [G2, nsp*PL, K] float32.
+    """
+    G, PL = tok.shape
+    G2, K = neg.shape
+    D = w_cat.shape[1] // 2
+    tok_ok = tok >= 0
+    tok_safe = torch.where(tok_ok, tok, 0)
+    y = ops.gather(w_cat, tok_safe.reshape(-1)).view(G, PL, 2 * D)
+    vn = ops.gather(w_cat[:, D:], neg.reshape(-1)).view(G2, K, D)
+    mask = (window_ok[None] & (dm[None] <= eff_b[:, :, None])
+            & tok_ok[:, :, None] & tok_ok[:, None, :]).to(torch.float32)
+    tok_n = tok_safe.reshape(G2, nsp * PL)
+    neg_ok = (neg[:, None, :] != tok_n[:, :, None]).to(torch.float32)
+    return tok_safe, y, vn, mask, neg_ok
+
+
+def sgns_step(w_cat, tok, eff_b, neg, lr, *, window_ok, dm, nsp, neg_w,
+              update_cap, ops=KERNELS):
+    """One SGNS step with the dense update cap; updates w_cat in place.
+    Returns (loss, pairs) as 0-d tensors."""
+    V, C = w_cat.shape
+    D = C // 2
+    G2, K = neg.shape
+    _, y, vn, mask, neg_ok = step_inputs(
+        w_cat, tok, eff_b, neg, window_ok, dm, nsp, ops)
+    d_yin, d_yout, d_vn, loss_g = ops.grads(
+        y[..., :D], y[..., D:], vn, mask, neg_ok, neg_w)
+
+    # per-row accumulation cap: a row touched R times in one step moves
+    # by its summed update scaled by min(1, cap / R). Occupancy rides as
+    # the last column of each scatter: 1 per token, and for a negative
+    # row its sharing group's n_pairs * neg_w
+    n_pairs = mask.sum(2)
+    neg_weight = (n_pairs.reshape(G2, -1) * neg_w).sum(1)[:, None].expand(
+        G2, K).reshape(-1)
+    ones = torch.ones((d_yin.shape[0] * d_yin.shape[1], 1),
+                      dtype=torch.float32, device=w_cat.device)
+    d_tok = torch.cat([d_yin.reshape(-1, D), d_yout.reshape(-1, D), ones], 1)
+    # The JAX step scatters pads as row 0. A pad's gradient row is exactly
+    # zero, so pads go in as -1 (dropped) and only their count is added to
+    # row 0's occupancy: the same buffer, without a run of thousands of
+    # zero rows on row 0 for the scatter to walk.
+    tbuf = ops.scatter_add(
+        torch.zeros((V, 2 * D + 1), dtype=torch.float32,
+                    device=w_cat.device), tok.reshape(-1), d_tok)
+    tbuf[0, 2 * D] += (tok < 0).sum()
+    d_neg = torch.cat([d_vn.reshape(-1, D), neg_weight[:, None]], 1)
+    nbuf = ops.scatter_add(
+        torch.zeros((V, D + 1), dtype=torch.float32, device=w_cat.device),
+        neg.reshape(-1), d_neg)
+    tok_scale = (update_cap / tbuf[:, 2 * D:].clamp(min=1.0)).clamp(max=1.0)
+    neg_scale = (update_cap / nbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
+    # in place: the JAX function donates the table, so nothing else
+    # holds the old values
+    w_cat.add_((-lr) * tbuf[:, :2 * D] * tok_scale)
+    w_cat[:, D:].add_((-lr) * nbuf[:, :D] * neg_scale)
+
+    pairs = mask.sum()
+    return loss_g.sum() / pairs.clamp(min=1.0), pairs
+
+
+def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
+                         total_steps, *, block_walks, window, negative,
+                         neg_share_packs=1, update_cap=8.0, ops=KERNELS):
+    """S = eff.shape[0] SGNS steps over consecutive walk blocks.
+
+    Step t trains on walks [((t0 + t) % n_blocks) * Bw : + Bw] with
+    learning rate max(min_alpha, alpha * (1 - (t0 + t) / total_steps)),
+    computed in float32 as the JAX package does. `eff` [S, G, PL] holds
+    the window draws in {1..window} and `negs` [S, G2, K] the shared
+    negative ids. Updates w_cat [V, 2D] in place and returns
+    (w_cat, losses [S], pairs [S]).
+    """
+    NW, L = walks.shape
+    geo = block_geometry(NW, L, block_walks, neg_share_packs)
+    S = eff.shape[0]
+    K = negs.shape[2]
+    if tuple(eff.shape) != (S, geo.G, geo.PL) or tuple(negs.shape) != (
+            S, geo.G2, K):
+        raise ValueError(f"draws eff {tuple(eff.shape)} / negs "
+                         f"{tuple(negs.shape)} do not match {geo}")
+    window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
+    steps = np.int32(t0) + np.arange(S, dtype=np.int32)
+    lrs = np.maximum(
+        np.float32(min_alpha),
+        np.float32(alpha) * (np.float32(1.0) - steps.astype(np.float32)
+                             / np.float32(total_steps)))
+    neg_w = float(np.float32(negative) / np.float32(K))
+    losses, pairs = [], []
+    for s in range(S):
+        off = int(steps[s] % geo.n_blocks) * geo.Bw
+        tok = walks[off: off + geo.Bw].reshape(geo.G, geo.PL)
+        loss, p = sgns_step(
+            w_cat, tok, eff[s], negs[s], float(lrs[s]), window_ok=window_ok,
+            dm=dm, nsp=geo.nsp, neg_w=neg_w, update_cap=float(update_cap),
+            ops=ops)
+        losses.append(loss)
+        pairs.append(p)
+    return w_cat, torch.stack(losses), torch.stack(pairs)
+
+
+def plan_block_walks(NW, L, num_nodes, cfg) -> int:
+    """Block size: the configured block (scaled up for large corpora by
+    `block_upscale`), capped at NW // 4 so a small corpus keeps >= 4
+    blocks per epoch, rounded to a multiple of P = 128 // L."""
+    P = max(min(max(128 // L, 1), NW), 1)
+    bw = min(block_upscale(NW, num_nodes, cfg), max(NW // 4, P))
+    return max((bw // P) * P, P)
+
+
+def block_upscale(NW, num_nodes, cfg) -> int:
+    """4x or 8x the configured block for corpora of >= 128 or >= 256
+    blocks while the tables stay under 6 GiB (the JAX package's policy,
+    kept so both packages train the same blocks)."""
+    bw_req = cfg.block_walks
+    if num_nodes * 2 * cfg.embed_size * 4 <= (6 << 30):
+        if NW >= 256 * cfg.block_walks:
+            bw_req = 8 * cfg.block_walks
+        elif NW >= 128 * cfg.block_walks:
+            bw_req = 4 * cfg.block_walks
+    return bw_req
+
+
+class SkipGramTrainer:
+    """SGNS fit over a walk corpus on the corpus' device."""
+
+    def __init__(self, config: SkipGramConfig | None = None, **kw):
+        self.config = config or SkipGramConfig(**kw)
+        self.trained_pairs_ = 0.0
+
+    def init_table(self, num_nodes, generator, device):
+        """Fused [V, 2D] table, gensim init: w_in ~ (U[0,1) - 0.5) / D,
+        w_out = 0."""
+        D = self.config.embed_size
+        w_in = (torch.rand((num_nodes, D), generator=generator,
+                           device=device) - 0.5) / D
+        return torch.cat([w_in, torch.zeros_like(w_in)], 1)
+
+    def fit(self, walks, num_nodes, seed=None):
+        """Train over the corpus walks (int32 [NW, L], -1 pads).
+
+        Returns (w_cat [V, 2D], losses [steps]); the step draws come from
+        a `torch.Generator` on the corpus' device seeded with `seed`
+        (default `config.seed`).
+        """
+        cfg = self.config
+        device = walks.device
+        gen = torch.Generator(device=device)
+        gen.manual_seed(cfg.seed if seed is None else seed)
+        NW, L = walks.shape
+        bw = plan_block_walks(NW, L, num_nodes, cfg)
+        geo = block_geometry(NW, L, bw, cfg.neg_share_packs)
+        chunks_per_epoch = max(
+            (geo.n_blocks + cfg.chunk_steps - 1) // cfg.chunk_steps, 1)
+        # the LR decays over the steps executed: every chunk runs
+        # chunk_steps steps, wrapping over the blocks
+        total_steps = cfg.epochs * chunks_per_epoch * cfg.chunk_steps
+        k_shared = min(cfg.k_shared, num_nodes)
+
+        # negative table and keep-probabilities from the raw corpus counts
+        counts = corpus_counts(walks, num_nodes)
+        table = torch.as_tensor(
+            negative_table(counts, cfg.ns_exponent, cfg.neg_table_size),
+            device=device)
+        keep = subsample_keep_probs(counts, cfg.sample)
+        keep_tok = None if keep is None else torch.as_tensor(
+            keep, device=device)[walks.clamp(min=0).long()]
+
+        w_cat = self.init_table(num_nodes, gen, device)
+        losses, pairs = [], []
+        t = 0
+        for _ in range(cfg.epochs):
+            perm = torch.randperm(NW, generator=gen, device=device)
+            shuffled = walks[perm]
+            if keep_tok is not None:
+                u = torch.rand((NW, L), generator=gen, device=device)
+                shuffled = _subsample_compact(shuffled, keep_tok[perm], u)
+            for _ in range(chunks_per_epoch):
+                S = cfg.chunk_steps
+                u = torch.rand((S, geo.G, geo.PL), generator=gen,
+                               device=device)
+                eff = cfg.window - (u * cfg.window).to(torch.int32).clamp(
+                    0, cfg.window - 1)
+                negs = table[torch.randint(
+                    0, table.shape[0], (S, geo.G2, k_shared),
+                    generator=gen, device=device)]
+                w_cat, lc, pc = sgns_block_chunk_cat(
+                    w_cat, shuffled, eff, negs, cfg.alpha, cfg.min_alpha, t,
+                    total_steps, block_walks=bw, window=cfg.window,
+                    negative=cfg.negative,
+                    neg_share_packs=cfg.neg_share_packs,
+                    update_cap=cfg.update_cap)
+                losses.append(lc)
+                pairs.append(pc)
+                t += S
+        self.trained_pairs_ = float(torch.cat(pairs).sum())
+        return w_cat, torch.cat(losses)

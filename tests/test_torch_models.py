@@ -1,0 +1,114 @@
+"""Port's datasets, classifier and DeepWalk against the JAX package."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from graphembedding_tpu.data import datasets as jds
+from graphembedding_tpu.eval.classify import Classifier as JaxClassifier
+from graphembedding_tpu_torch import DeepWalk
+from graphembedding_tpu_torch.data import datasets as tds
+from graphembedding_tpu_torch.eval.classify import Classifier, f1_scores
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("make", ["synthetic_wiki", "synthetic_wiki_hard"])
+def test_synthetic_graphs_equal_jax(make):
+    a, b = getattr(tds, make)(), getattr(jds, make)()
+    for name in ("row_ptr", "col_idx", "edge_weight", "degree"):
+        np.testing.assert_array_equal(getattr(a.graph, name),
+                                      getattr(b.graph, name))
+    assert a.labels == b.labels and a.name == b.name
+    assert list(a.graph.vocab.idx2node) == list(b.graph.vocab.idx2node)
+
+
+def test_load_wiki_is_the_synthetic_graph():
+    ds = tds.load_dataset("wiki")
+    assert (ds.graph.num_nodes, ds.graph.num_edges) == (2405, 16305)
+    assert ds.graph.max_degree == 139
+    with pytest.raises(NotImplementedError):
+        tds.load_dataset("blogcatalog")
+
+
+def test_classifier_matches_sklearn():
+    """Same embeddings through both classifiers: the L-BFGS solutions
+    differ only by solver tolerance, so micro-F1 agrees within 0.02."""
+    rng = np.random.default_rng(0)
+    n, k, dim = 600, 6, 16
+    labels = rng.integers(0, k, n)
+    centers = rng.standard_normal((k, dim))
+    emb = centers[labels] * 0.6 + rng.standard_normal((n, dim))
+    embeddings = {str(i): emb[i].astype(np.float32) for i in range(n)}
+    X = [str(i) for i in range(n)]
+    Y = [[str(labels[i])] for i in range(n)]
+    ours = Classifier(embeddings).split_train_evaluate(X, Y, 0.8, seed=0)
+    ref = JaxClassifier(embeddings).split_train_evaluate(X, Y, 0.8, seed=0)
+    assert 0.5 < ref["micro"] < 0.95  # a discriminative band
+    assert abs(ours["micro"] - ref["micro"]) <= 0.02, (ours, ref)
+    assert abs(ours["macro"] - ref["macro"]) <= 0.02, (ours, ref)
+
+
+def test_f1_scores_match_sklearn():
+    from sklearn.metrics import accuracy_score, f1_score
+
+    rng = np.random.default_rng(1)
+    t = (rng.random((50, 5)) < 0.3).astype(int)
+    p = (rng.random((50, 5)) < 0.3).astype(int)
+    got = f1_scores(t, p)
+    for avg in ("micro", "macro", "samples", "weighted"):
+        assert got[avg] == pytest.approx(
+            f1_score(t, p, average=avg, zero_division=0))
+    assert got["acc"] == pytest.approx(accuracy_score(t, p))
+
+
+def test_deepwalk_hard_sbm_gate():
+    """The gate of tests/test_models.py::test_deepwalk_hard_sbm_gate on
+    the port, over the three calibrated seeds
+    (benchmarks/gate_calibration_r05.json): every seed >= 0.55, mean >=
+    0.60."""
+    ds = tds.synthetic_wiki_hard()
+    scores = []
+    for seed in (0, 1, 2):
+        m = DeepWalk(ds.graph, walk_length=10, num_walks=20, seed=seed)
+        m.train(embed_size=64, window_size=5, iter=3)
+        r = Classifier(m.get_embeddings()).split_train_evaluate(
+            ds.X, ds.Y, 0.8, seed=0)
+        scores.append(r["micro"])
+    assert min(scores) >= 0.55, scores
+    assert sum(scores) / len(scores) >= 0.60, scores
+
+
+def test_unsupported_options_raise():
+    ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
+    m = DeepWalk(ds.graph, walk_length=5, num_walks=2)
+    for kw in ({"hs": 1}, {"trainer": "dense"}, {"mesh": object()},
+               {"checkpoint_dir": "ckpt"}, {"cap_mode": "sparse"}):
+        with pytest.raises(NotImplementedError):
+            m.train(embed_size=8, iter=1, **kw)
+    with pytest.raises(NotImplementedError):
+        DeepWalk(ds.graph, mesh=object())
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, graphembedding_tpu_torch, "
+            "graphembedding_tpu_torch.train, graphembedding_tpu_torch.data, "
+            "graphembedding_tpu_torch.interop; "
+            "assert 'jax' not in sys.modules; "
+            "assert 'graphembedding_tpu' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; chip_smoke.py runs for real")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
