@@ -133,6 +133,12 @@ class Graph:
     def neighbors(self, v: int) -> np.ndarray:
         return self.col_idx[self.row_ptr[v]: self.row_ptr[v + 1]]
 
+    def edges(self):
+        """(src, dst, weight) int64/int64/f32 arrays in CSR order."""
+        src = np.repeat(np.arange(self.num_nodes, dtype=np.int64),
+                        np.diff(self.row_ptr))
+        return src, self.col_idx.astype(np.int64), self.edge_weight
+
     def __repr__(self):
         return (f"Graph(V={self.num_nodes}, E={self.num_edges}, "
                 f"directed={self.directed}, max_degree={self.max_degree})")

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of `graphembedding_tpu_torch/csrc/`.
 
-The sources are compiled with `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, loaded with `ctypes`. The library goes to
+The sources are compiled with `nvcc` for Hopper (`sm_90a`), one process a
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with `ctypes`. The library goes to
 `graphembedding_tpu_torch/build/` under a name keyed by a hash of the
 sources and the compiler flags, so an edited source is rebuilt and an
 unchanged one is built once. The build happens at first use, never at
@@ -27,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -42,6 +43,10 @@ SIGNATURES = {
     "ge_gather_rows": [_I, _P, _I64, _I, _P, _I, _I, _P, _P],
     # device, table, ld, V, sorted_ids, order, grads, N, C, stream
     "ge_scatter_add_rows": [_I, _P, _I64, _I, _P, _P, _P, _I, _I, _P],
+    # device, table, ld, V, ids, grads, N, C, stream
+    "ge_scatter_add_small": [_I, _P, _I64, _I, _P, _P, _I, _I, _P],
+    # device, table, V, ids, N, W, B, out, stream
+    "ge_dma_gather_rows": [_I, _P, _I, _P, _I, _I, _I, _P, _P],
     "ge_error_string": [_I],
 }
 
@@ -85,27 +90,32 @@ def build():
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     cu = [p for p in sources() if p.endswith(".cu")]
-    # compile to a temporary name, then rename: a concurrent process
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_log.update(seconds=time.perf_counter() - t0,
-                     ptxas=proc.stdout + proc.stderr)
+    # build in a temporary directory, then rename: a concurrent process
+    # never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"nvcc failed on {os.path.basename(src)} "
+                  f"({p.returncode}):\n{log}"
+                  for src, p, log in zip(cu, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, NVCC_FLAGS[0], NVCC_FLAGS[1], "-shared", "-o", lib,
+             *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(lib, out)
+    build_log.update(seconds=time.perf_counter() - t0, ptxas="".join(logs))
     return out
 
 

@@ -88,6 +88,28 @@ def negative_table(counts: np.ndarray, exponent: float = 0.75,
         cum, (np.arange(size) + 0.5) / size, side="left").astype(np.int32)
 
 
+def inverse_cdf_table(p: torch.Tensor, size: int) -> torch.Tensor:
+    """Pre-sampled inverse-CDF lookup table in float32, on p's device.
+
+    The JAX package's `inverse_cdf_table` op for op: weight i's CDF
+    boundary lands at slot m_i = floor(cum_i * size + 0.5) and table[j] =
+    #{i : m_i <= j}, i.e. searchsorted(cum, (j + 0.5) / size, 'left').
+    The f32 sum and cumsum run in another order than XLA's, so a few
+    boundary slots can differ by one id (tests/test_torch_line.py counts
+    them).
+    """
+    p = p.to(torch.float32)
+    n = p.shape[0]
+    p = torch.where(p.sum() > 0, p, torch.ones_like(p))
+    cum = torch.cumsum(p, 0) / p.sum().clamp(min=1.0)
+    m = torch.floor(cum * size + 0.5).to(torch.int64)
+    # boundaries at or after the end mark no slot: they go to an overflow
+    # slot that is dropped
+    m = torch.where(m < size, m.clamp(min=0), size)
+    marks = torch.bincount(m, minlength=size + 1)[:size]
+    return torch.cumsum(marks, 0).clamp(0, n - 1).to(torch.int32)
+
+
 def subsample_keep_probs(counts: np.ndarray, sample: float):
     """word2vec keep-probabilities (sqrt(f/sample) + 1) * sample/f,
     clipped to 1, for corpus frequency f; None when sample <= 0."""

@@ -5,11 +5,12 @@ imports no jax, so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_card.py -q
 
-Shapes are those of the DeepWalk-on-Wiki step. Tolerances: the gather is
-exact; K1 rtol=2e-4, atol=1e-5 (f32 sums in another order); K2 is
-bit-equal to the plain version's sequential sum on the CPU; four SGNS
-steps rtol=1e-4, atol=1e-6 (the plain version on the card scatters with
-atomics).
+Shapes are those of the DeepWalk-on-Wiki and LINE-on-Wiki steps and of the
+row benchmarks. Tolerances: the gathers (K3, K5) are exact; K1 rtol=2e-4,
+atol=1e-5 (f32 sums in another order); K2 and K4 are bit-equal to the
+plain version's sequential sum on the CPU; four SGNS steps rtol=1e-4,
+atol=1e-6 and four LINE steps rtol=1e-5, atol=1e-6 (the plain version on
+the card scatters with atomics).
 """
 
 import numpy as np
@@ -17,11 +18,16 @@ import pytest
 import torch
 
 from graphembedding_tpu_torch.graph import Graph
+from graphembedding_tpu_torch.models import line
+from graphembedding_tpu_torch.models.line import LINE
 from graphembedding_tpu_torch.ops.rows import (
+    dma_gather_rows,
+    dma_gather_rows_plain,
     gather_rows,
     gather_rows_plain,
     scatter_add_rows,
     scatter_add_rows_plain,
+    scatter_add_small,
 )
 from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads,
@@ -87,6 +93,86 @@ def test_row_kernels_match_plain(cuda, V, C, N):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got, again)  # deterministic
+
+
+# LINE's Wiki scatters (emb, then ctx), the benchmark's shapes, ragged ones:
+# C not a multiple of 4, a tile of one row, C above the block's threads
+@pytest.mark.parametrize("V,C,N", [(2405, 128, 1024), (2405, 128, 6144),
+                                   (10312, 256, 45696), (50, 7, 3000),
+                                   (1, 33, 100), (40, 1030, 64)])
+def test_scatter_add_small_matches_plain(cuda, V, C, N):
+    """K4 is bit-equal to the plain version's sequential sum on the CPU,
+    and the same from run to run; ids -1, V and V + 100 are dropped."""
+    rng = np.random.default_rng(5)
+    t = torch.from_numpy(rng.normal(size=(V, C)).astype(np.float32)).to(cuda)
+    i = rng.integers(0, V, N).astype(np.int32)
+    i[::11], i[1::11], i[2::11] = -1, V, V + 100
+    i[3::4] = i[3]  # a hot row
+    i = torch.from_numpy(i).to(cuda)
+    g = torch.from_numpy(
+        rng.normal(size=(N, C)).astype(np.float32) * 1e-2).to(cuda)
+    before = scatter_add_small.launches
+    got = scatter_add_small(t.clone(), i, g)
+    again = scatter_add_small(t.clone(), i, g)
+    assert scatter_add_small.launches == before + 2
+    want = scatter_add_rows_plain(t.cpu(), i.cpu(), g.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("V,W,N,B", [(1 << 20, 256, 1 << 16, 8),
+                                     (1 << 20, 256, 1 << 16, 16),
+                                     (1 << 20, 256, 1 << 16, 32),
+                                     (100, 4, 96, 3), (500, 2048, 64, 16)])
+def test_dma_gather_matches_plain(cuda, V, W, N, B):
+    """K5 is bit-equal to table[ids] and the same from run to run; an id
+    outside [0, V) gives a zero row."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    t = torch.randn((V, W), generator=gen, device=cuda)
+    i = torch.randint(0, V, (N,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    before = dma_gather_rows.launches
+    got = dma_gather_rows(t, i, block_rows=B)
+    assert torch.equal(got, dma_gather_rows_plain(t, i))
+    assert torch.equal(got, dma_gather_rows(t, i, block_rows=B))
+    assert dma_gather_rows.launches == before + 2
+    bad = i.clone()
+    bad[::5] = -1
+    bad[1::5] = V
+    got = dma_gather_rows(t, bad, block_rows=B)
+    ok = (bad >= 0) & (bad < V)
+    assert torch.equal(got[ok], t[bad[ok].long()])
+    assert not got[~ok].any()
+
+
+@pytest.mark.parametrize("order,k_shared", [("first", 0), ("second", 0),
+                                            ("second", 64)])
+def test_four_line_steps_match_plain(cuda, order, k_shared):
+    """Four LINE steps at the Wiki shapes through K3 and K4 against the
+    plain versions, from the same tables and draws: rtol=1e-5, atol=1e-6
+    (the plain scatter on the card sums with atomics, in another order)."""
+    V, D, B, K = 2405, 128, 1024, 5
+    g = Graph(np.arange(V), (np.arange(V) * 7 + 1) % V, directed=False)
+    m = LINE(g, embedding_size=D, order=order, k_shared=k_shared,
+             device=cuda)
+    draws = line.line_bulk_samples(
+        m._edge_src, m._edge_dst, m._edge_accept, m._edge_alias,
+        m._neg_table, torch.Generator(device=cuda).manual_seed(7), 0.025, 0,
+        796.0, chunk_steps=4, batch_size=B, negative=K, k_shared=k_shared)
+    emb, ctx = ((m.first_emb, None) if order == "first"
+                else (m.second_emb, m.context_emb))
+    out = []
+    for ops in (line.KERNELS, line.PLAIN):
+        out.append(line.line_steps(
+            emb.clone(), None if ctx is None else ctx.clone(), *draws,
+            negative=K, k_shared=k_shared, ops=ops))
+    torch.cuda.synchronize()
+    for a, b in zip(out[0], out[1]):
+        if a is not None:
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+    assert (out[0][0] - emb).abs().max() > 1e-4  # it moved
 
 
 def test_walks_on_card(cuda):

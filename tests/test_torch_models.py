@@ -96,7 +96,10 @@ def test_unsupported_options_raise():
 def test_port_imports_no_jax():
     code = ("import sys, graphembedding_tpu_torch, "
             "graphembedding_tpu_torch.train, graphembedding_tpu_torch.data, "
-            "graphembedding_tpu_torch.interop; "
+            "graphembedding_tpu_torch.interop, "
+            "graphembedding_tpu_torch.models.line, "
+            "graphembedding_tpu_torch.benchmarks.dma_gather, "
+            "graphembedding_tpu_torch.benchmarks.scatter_bench; "
             "assert 'jax' not in sys.modules; "
             "assert 'graphembedding_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
