@@ -8,7 +8,11 @@ Phases, one or more lines each:
   2. build: compiles the CUDA kernels from graphembedding_tpu_torch/csrc;
   3. kernels: K1 (SGNS block gradients), K2 (row scatter-add) and K3 (row
      gather) against their plain PyTorch versions at the shapes of the
-     DeepWalk-on-Wiki step, with times (CUDA events, median of 20 runs);
+     DeepWalk-on-Wiki step, with device times (CUDA events around calls
+     queued while the card spins, so that host launch time does not show;
+     median of 20 runs; K1 and its plain version in turns: plain, kernel,
+     kernel, plain), K1's achieved GB/s and useful TFLOP/s, and K1's
+     run-to-run bit identity;
   4. step parity: four SGNS steps through the kernels against four
      through the plain versions, from the same table and draws;
   5. main path: load_dataset('wiki') -> DeepWalk(walk_length=10,
@@ -63,21 +67,54 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, runs=20, warmup=3):
+HOLD_CYCLES = 4_000_000  # about 2 ms of the card's clock a queued call
+
+
+def timed_ms(fn, reps):
+    """Device ms a call of fn over reps calls between two CUDA events. The
+    card first spins while the host queues the calls, so the host's launch
+    time does not show between the events."""
     import torch
 
+    torch.cuda._sleep(HOLD_CYCLES * reps)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def median_ms(fn, runs=20, warmup=3):
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(timed_ms(fn, 1) for _ in range(runs))
+
+
+def turns_ms(kernel, plain, rounds=10, reps=5):
+    """Median ms a call of kernel and of plain, timed in turns (plain,
+    kernel, kernel, plain, ...) of `reps` calls each, so that drift of the
+    card's clocks falls on both alike."""
+    fns = (kernel, plain)
+    for fn in fns:
+        for _ in range(3):
+            fn()
+    times = ([], [])
+    for _ in range(rounds):
+        for which in (1, 0, 0, 1):
+            times[which].append(timed_ms(fns[which], reps))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def sgns_work(G, G2, PL, D, K):
+    """(bytes through device memory, useful FLOP) of one K1 call: every
+    input read once, every output written once; six products."""
+    r = G // G2
+    floats = (4 * G * PL * D + G * PL * PL + G2 * r * PL * K + 2 * G2 * K * D
+              + G)
+    return 4 * floats, 2 * G * D * (3 * PL * PL + 3 * PL * K)
 
 
 def max_err(got, want, rtol, atol, what):
@@ -189,18 +226,28 @@ def main():
     print(f"  gather_rows negatives [{nflat.numel()}, {D}]: {ms_n:.4f} ms "
           f"vs plain {pl_n:.4f} ms")
 
-    # K1
+    # K1: within rtol 2e-4 / atol 1e-5 of the plain version, the same bits
+    # on a second launch, timed in turns with the plain version
     args = (y[..., :D], y[..., D:], vn, mask, neg_ok, neg_w)
     got = sgns_block_grads(*args)
+    again = sgns_block_grads(*args)
     want = sgns_block_grads_plain(*args)
     torch.cuda.synchronize()
     err = max(max_err(g, w, 2e-4, 1e-5, f"sgns_block_grads {n}")
               for g, w, n in zip(got, want, ("d_yin", "d_yout", "d_vn",
                                              "loss")))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("sgns_block_grads: two launches on the same inputs differ")
+    ms, plain_ms = turns_ms(lambda: sgns_block_grads(*args),
+                            lambda: sgns_block_grads_plain(*args))
     record("sgns_block_grads", "graphembedding_tpu_torch/csrc/sgns.cu",
-           "graphembedding_tpu/ops/pallas_sgns.py:42", err,
-           median_ms(lambda: sgns_block_grads(*args)),
-           median_ms(lambda: sgns_block_grads_plain(*args)))
+           "graphembedding_tpu/ops/pallas_sgns.py:42", err, ms, plain_ms)
+    nbytes, flop = sgns_work(geo.G, geo.G2, geo.PL, D, K)
+    print(f"  sgns_block_grads: run-to-run bit-identical; "
+          f"{nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB a call, "
+          f"{flop / ms / 1e9:.2f} useful TFLOP/s of {flop / 1e9:.2f} GFLOP "
+          f"(plain: {nbytes / plain_ms / 1e6:.1f} GB/s, "
+          f"{flop / plain_ms / 1e9:.2f} TFLOP/s) [{card}]", flush=True)
 
     # K2: held against the plain version's sequential sum on the CPU, which
     # sums each row in the same order (the plain version on the card sums

@@ -12,10 +12,13 @@ as the Pallas kernel's does; the XLA oracle spreads a sharing group's
 negative loss evenly over its r groups, so with r > 1 the two agree in
 their sums over each sharing group.
 
-On the H100 the kernel is bound by FP32 FMA issue from shared memory; it
-runs one block per sharing group and keeps every intermediate in shared
-memory (see `csrc/sgns.cu`). The wrapper takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+On the H100 the kernel runs the six products on the tensor cores in
+split TF32 (three TF32 passes, FP32-level accuracy), one block per
+packing group, with the r groups of a sharing group in one thread-block
+cluster that sums d_vn in rank order (no atomics: the same bits from run
+to run), and its inputs arriving by bulk copies (see `csrc/sgns.cu`). The
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from graphembedding_tpu_torch.kernels import build as kb
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may opt into
+_MAX_CLUSTER = 8  # portable thread-block cluster size: r groups a cluster
 
 
 def sgns_block_grads_plain(yin, yout, vn, mask, neg_ok, neg_w):
@@ -49,10 +53,19 @@ def sgns_block_grads_plain(yin, yout, vn, mask, neg_ok, neg_w):
 
 
 def _smem_bytes(PL, D, K):
-    """Dynamic shared memory of one block (mirrors csrc/sgns.cu)."""
-    r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
-    lds, mk = D + 4, max(PL, K)
-    return 4 * ((PL + mk) * lds + r4(PL * mk) + K * D + r4(PL) + 32)
+    """Dynamic shared memory of one block: mirrors `Plan` in csrc/sgns.cu,
+    which refuses a launch whose size disagrees. PL, K and D are padded to
+    multiples of 32; rows are spaced 4 floats wider."""
+    r32 = lambda n: -(-n // 32) * 32  # noqa: E731
+    PLp, Kp, Dp = r32(PL), r32(K), r32(D)
+    ldy, ldg = Dp + 4, max(PLp, Kp) + 4
+    tiles = (PLp * ldy                       # yin
+             + max(PLp * ldy,                # yout, then vn and neg_ok
+                   Kp * ldy + -(-PL * K // 4) * 4)
+             + PLp * ldg)                    # mask, g_pos, g_neg
+    # n_pairs parts, n_pairs, loss parts, live steps of the g_pos products
+    small = PLp // 32 * PLp + PLp + 16 + 2 * (PLp // 32)
+    return 32 + 4 * (tiles + small)          # 32: the three mbarriers
 
 
 def _row_stride(t, rows, name):
@@ -95,6 +108,9 @@ def sgns_block_grads(yin, yout, vn, mask, neg_ok, neg_w):
         raise ValueError(f"sgns_block_grads: unsupported device {yin.device}")
     if D % 4:
         raise ValueError(f"sgns_block_grads: D ({D}) must be a multiple of 4")
+    if r > _MAX_CLUSTER:
+        raise ValueError(f"sgns_block_grads: {r} groups share a negative set;"
+                         f" the kernel takes at most {_MAX_CLUSTER}")
     smem = _smem_bytes(PL, D, K)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"sgns_block_grads: PL={PL}, D={D}, K={K} need "

@@ -7,7 +7,8 @@ imports no jax, so it also runs on a machine that has only PyTorch:
 
 Shapes are those of the DeepWalk-on-Wiki and LINE-on-Wiki steps and of the
 row benchmarks. Tolerances: the gathers (K3, K5) are exact; K1 rtol=2e-4,
-atol=1e-5 (f32 sums in another order); K2 and K4 are bit-equal to the
+atol=1e-5 (split-TF32 products, f32 sums in another order) and the same
+bits from run to run; K2 and K4 are bit-equal to the
 plain version's sequential sum on the CPU; four SGNS steps rtol=1e-4,
 atol=1e-6 and four LINE steps rtol=1e-5, atol=1e-6 (the plain version on
 the card scatters with atomics).
@@ -48,12 +49,15 @@ def cuda():
 
 
 # the slice's shapes, then ragged ones: PL not a multiple of 4 (L = 7,
-# P = 18), r = 2, K above PL, a single group
+# P = 18), r = 2, K above PL, a single group; r = 3 at the slice's widths
 @pytest.mark.parametrize("G,PL,D,K,G2", [(336, 120, 128, 64, 84),
                                          (6, 126, 64, 10, 3),
                                          (4, 20, 32, 40, 4),
-                                         (1, 9, 4, 1, 1)])
+                                         (1, 9, 4, 1, 1),
+                                         (12, 120, 128, 64, 4)])
 def test_sgns_kernel_matches_plain(cuda, G, PL, D, K, G2):
+    """K1 holds rtol=2e-4, atol=1e-5 against the plain version and gives
+    the same bits on a second launch (d_vn is summed without atomics)."""
     rng = np.random.default_rng(3)
     f32 = np.float32
     inputs = [torch.from_numpy(a).to(cuda) for a in (
@@ -64,8 +68,33 @@ def test_sgns_kernel_matches_plain(cuda, G, PL, D, K, G2):
         (rng.random((G2, G // G2 * PL, K)) < 0.9).astype(f32))]
     before = sgns_block_grads.launches
     got = sgns_block_grads(*inputs, 5.0 / K)
-    assert sgns_block_grads.launches == before + 1
+    again = sgns_block_grads(*inputs, 5.0 / K)
+    assert sgns_block_grads.launches == before + 2
     want = sgns_block_grads_plain(*inputs, 5.0 / K)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-4, atol=1e-5)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("r", [1, 3, 4])
+def test_sgns_kernel_reads_column_slices(cuda, r):
+    """yin and yout as the step passes them: the two halves of gathered
+    [G, PL, 2D] rows (row stride 2D), vn a column slice of the table."""
+    G2, PL, D, K = 8, 120, 128, 64
+    G = G2 * r
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    y = torch.randn((G, PL, 2 * D), generator=gen, device=cuda) * 0.3
+    table = torch.randn((G2 * K, 2 * D), generator=gen, device=cuda) * 0.3
+    vn = table[:, D:].view(G2, K, D)
+    mask = (torch.rand((G, PL, PL), generator=gen, device=cuda)
+            < 0.2).float()
+    neg_ok = (torch.rand((G2, r * PL, K), generator=gen, device=cuda)
+              < 0.9).float()
+    args = (y[..., :D], y[..., D:], vn, mask, neg_ok, 5.0 / K)
+    got = sgns_block_grads(*args)
+    want = sgns_block_grads_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
