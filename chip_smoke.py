@@ -10,21 +10,23 @@ Phases, one or more lines each:
      gather) against their plain PyTorch versions at the shapes of the
      DeepWalk-on-Wiki step, with device times (CUDA events around calls
      queued while the card spins, so that host launch time does not show;
-     median of 20 runs; K1 and its plain version in turns: plain, kernel,
-     kernel, plain), K1's achieved GB/s and useful TFLOP/s, and K1's
-     run-to-run bit identity;
+     median of 20 runs; K1 in turns with its plain version, K2 in turns
+     with a bare `index_add_` on the in-range ids: other, kernel, kernel,
+     other), each kernel's bound (section "Bounds" below), K1's achieved
+     GB/s and useful TFLOP/s, K1's and K2's run-to-run bit identity, and
+     the device launches of one K2 call (torch.profiler);
   4. step parity: four SGNS steps through the kernels against four
      through the plain versions, from the same table and draws;
   5. main path: load_dataset('wiki') -> DeepWalk(walk_length=10,
      num_walks=80, device='cuda') -> train(embed_size=128, window_size=5,
      iter=3) -> get_embeddings -> Classifier (0.8 split, seed 0); checks
      that every kernel launched and micro-F1 >= 0.93;
-  6. K4 (small-V row scatter-add) against its plain version and K2 at the
-     shapes of the LINE-on-Wiki step: 1,024 rows into emb and 6,144 into
-     ctx, V = 2405, C = 128;
+  6. K4 (small-V row scatter-add) against its plain version, K2 and a
+     bare `index_add_` (in turns) at the shapes of the LINE-on-Wiki step:
+     1,024 rows into emb and 6,144 into ctx, V = 2405, C = 128;
   7. K5 (row gather by bulk copies): the `dma_gather` benchmark at its
      default shapes (a 1M x 256 table, 65,536 ids, B = 8/16/32) against
-     the plain gather and K3, counting K5's launches;
+     the plain gather, `index_select` and K3, counting K5's launches;
   8. `scatter_bench --quick`: K2 against index_add_ at V = 1M, K4, K2 and
      K3 against their plain versions at V = 2405;
   9. four LINE steps through the kernels against four plain ones;
@@ -35,11 +37,19 @@ Phases, one or more lines each:
 
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
+
+Bounds: `bound_ms` is the least time the card could take for a kernel's
+work on this run's inputs: the larger of its bytes (each input read once,
+each output written once; for the row kernels only the rows this run's ids
+touch) over 3.35 TB/s of HBM3, and its operations over the card's peak for
+their type (K1: its split-TF32 products, three per useful product, at
+495 TFLOP/s). `library_ms` is one PyTorch call that computes the same
+function (`index_add_` on the in-range ids for K2 and K4, `index_select`
+for K3 and K5; none for K1), which the port never calls.
 """
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -67,45 +77,37 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-HOLD_CYCLES = 4_000_000  # about 2 ms of the card's clock a queued call
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+TF32_FLOP_PER_S = 495e12  # H100 SXM, dense tensor cores
 
 
-def timed_ms(fn, reps):
-    """Device ms a call of fn over reps calls between two CUDA events. The
-    card first spins while the host queues the calls, so the host's launch
-    time does not show between the events."""
+def rows_bound_ms(ids, V, C, out_rows):
+    """Bound of a row kernel on these ids: the ids, the touched table rows
+    (read, and written back when out_rows is None), and out_rows rows of
+    gradients read (scatter) or of output written (gather)."""
+    kept = ids[(ids >= 0) & (ids < V)]
+    rows = kept.unique().numel()
+    scatter = out_rows is None
+    nbytes = 4 * (ids.numel() + rows * C * (2 if scatter else 1)
+                  + (kept.numel() if scatter else out_rows) * C)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def device_launches(fn):
+    """Device kernels (and copies) one call of fn ran, by torch.profiler;
+    None where the trace holds no device events."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda._sleep(HOLD_CYCLES * reps)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def median_ms(fn, runs=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    return statistics.median(timed_ms(fn, 1) for _ in range(runs))
-
-
-def turns_ms(kernel, plain, rounds=10, reps=5):
-    """Median ms a call of kernel and of plain, timed in turns (plain,
-    kernel, kernel, plain, ...) of `reps` calls each, so that drift of the
-    card's clocks falls on both alike."""
-    fns = (kernel, plain)
-    for fn in fns:
-        for _ in range(3):
-            fn()
-    times = ([], [])
-    for _ in range(rounds):
-        for which in (1, 0, 0, 1):
-            times[which].append(timed_ms(fns[which], reps))
-    return statistics.median(times[0]), statistics.median(times[1])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return names or None
 
 
 def sgns_work(G, G2, PL, D, K):
@@ -153,6 +155,8 @@ def main():
         fail(f"graphembedding_tpu_torch comes from {pkg.__file__}, not "
              f"from this checkout")
     from graphembedding_tpu_torch import DeepWalk
+    from graphembedding_tpu_torch.benchmarks.common import (
+        median_ms, turns_ms)
     from graphembedding_tpu_torch.data import load_dataset
     from graphembedding_tpu_torch.eval.classify import Classifier
     from graphembedding_tpu_torch.kernels import build as kb
@@ -203,12 +207,17 @@ def main():
 
     records = []
 
-    def record(name, source, replaces, err, ms, plain_ms):
+    def record(name, source, replaces, err, ms, plain_ms, bound_ms,
+               library_ms, bound_by="bytes"):
         records.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=None,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms))
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"kernel {name}: max_abs_err {err:.3e}, {ms:.4f} ms vs plain "
-              f"{plain_ms:.4f} ms [{card}]", flush=True)
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"library {lib} [{card}]", flush=True)
 
     # K3: bit-exact
     got = gather_rows(w_cat, flat)
@@ -217,10 +226,13 @@ def main():
     if not (torch.equal(got, gather_rows_plain(w_cat, flat))
             and torch.equal(got_n, gather_rows_plain(w_cat[:, D:], nflat))):
         fail("gather_rows differs from table[ids]")
+    flat_l = flat.long()
     record("gather_rows", "graphembedding_tpu_torch/csrc/rows.cu",
            "graphembedding_tpu/ops/pallas_scatter.py:261", 0.0,
            median_ms(lambda: gather_rows(w_cat, flat)),
-           median_ms(lambda: gather_rows_plain(w_cat, flat)))
+           median_ms(lambda: gather_rows_plain(w_cat, flat)),
+           rows_bound_ms(flat, V, 2 * D, flat.numel()),
+           median_ms(lambda: torch.index_select(w_cat, 0, flat_l)))
     ms_n = median_ms(lambda: gather_rows(w_cat[:, D:], nflat))
     pl_n = median_ms(lambda: gather_rows_plain(w_cat[:, D:], nflat))
     print(f"  gather_rows negatives [{nflat.numel()}, {D}]: {ms_n:.4f} ms "
@@ -240,9 +252,13 @@ def main():
         fail("sgns_block_grads: two launches on the same inputs differ")
     ms, plain_ms = turns_ms(lambda: sgns_block_grads(*args),
                             lambda: sgns_block_grads_plain(*args))
-    record("sgns_block_grads", "graphembedding_tpu_torch/csrc/sgns.cu",
-           "graphembedding_tpu/ops/pallas_sgns.py:42", err, ms, plain_ms)
     nbytes, flop = sgns_work(geo.G, geo.G2, geo.PL, D, K)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 3 * flop / TF32_FLOP_PER_S * 1e3
+    record("sgns_block_grads", "graphembedding_tpu_torch/csrc/sgns.cu",
+           "graphembedding_tpu/ops/pallas_sgns.py:42", err, ms, plain_ms,
+           max(byte_ms, op_ms), None,
+           "operations" if op_ms >= byte_ms else "bytes")
     print(f"  sgns_block_grads: run-to-run bit-identical; "
           f"{nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB a call, "
           f"{flop / ms / 1e9:.2f} useful TFLOP/s of {flop / 1e9:.2f} GFLOP "
@@ -251,34 +267,45 @@ def main():
 
     # K2: held against the plain version's sequential sum on the CPU, which
     # sums each row in the same order (the plain version on the card sums
-    # with atomics, in an order that changes from run to run)
+    # with atomics, in an order that changes from run to run); timed in
+    # turns with a bare index_add_ on the in-range ids
     d_yin, d_yout, d_vn, _ = want
     ones = torch.ones((flat.numel(), 1), device=dev)
     d_tok = torch.cat([d_yin.reshape(-1, D), d_yout.reshape(-1, D), ones], 1)
     d_neg = torch.cat([d_vn.reshape(-1, D), ones[:nflat.numel()]], 1)
-    errs = []
-    for ids, grads in ((sflat, d_tok), (nflat, d_neg)):
-        buf = torch.zeros((V, grads.shape[1]), device=dev)
+    k2 = {}
+    for call, ids, grads in (("tokens", sflat, d_tok),
+                             ("negatives", nflat, d_neg)):
+        C = grads.shape[1]
+        buf = torch.zeros((V, C), device=dev)
         got = scatter_add_rows(buf.clone(), ids, grads)
         again = scatter_add_rows(buf.clone(), ids, grads)
         want_s = scatter_add_rows_plain(buf.cpu(), ids.cpu(), grads.cpu())
         torch.cuda.synchronize()
-        errs.append(max_err(got.cpu(), want_s, 1e-5, 1e-6,
-                            "scatter_add_rows"))
-        print(f"  scatter_add_rows [{ids.numel()}, {grads.shape[1]}]: "
-              f"bit-equal to the CPU plain version: "
-              f"{torch.equal(got.cpu(), want_s)}, run to run: "
-              f"{torch.equal(got, again)}")
-    tbuf = torch.zeros((V, 2 * D + 1), device=dev)
+        if not torch.equal(got.cpu(), want_s) or not torch.equal(got, again):
+            fail(f"scatter_add_rows {call} [{ids.numel()}, {C}]: not "
+                 f"bit-equal to the CPU plain version or not run-to-run "
+                 f"identical")
+        keep = (ids >= 0) & (ids < V)
+        ids_in, grads_in = ids[keep].long(), grads[keep].contiguous()
+        ms, lib_ms = turns_ms(lambda: scatter_add_rows(buf, ids, grads),
+                              lambda: buf.index_add_(0, ids_in, grads_in))
+        plain_ms = median_ms(lambda: scatter_add_rows_plain(buf, ids, grads))
+        launched = device_launches(lambda: scatter_add_rows(buf, ids, grads))
+        launched = ("not measured" if launched is None
+                    else f"{len(launched)} {launched}")
+        k2[call] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=rows_bound_ms(ids, V, C, None))
+        print(f"  scatter_add_rows {call} [{ids.numel()}, {C}] into "
+              f"[{V}, {C}]: bit-equal to the CPU plain version, run to run "
+              f"identical; {ms:.4f} ms vs index_add_ {lib_ms:.4f} ms in "
+              f"turns, plain {plain_ms:.4f} ms, bound "
+              f"{k2[call]['bound_ms']:.4f} ms; device launches a call: "
+              f"{launched} [{card}]", flush=True)
     record("scatter_add_rows", "graphembedding_tpu_torch/csrc/rows.cu",
-           "graphembedding_tpu/ops/pallas_scatter.py:67", max(errs),
-           median_ms(lambda: scatter_add_rows(tbuf, sflat, d_tok)),
-           median_ms(lambda: scatter_add_rows_plain(tbuf, sflat, d_tok)))
-    nbuf = torch.zeros((V, D + 1), device=dev)
-    ms_n = median_ms(lambda: scatter_add_rows(nbuf, nflat, d_neg))
-    pl_n = median_ms(lambda: scatter_add_rows_plain(nbuf, nflat, d_neg))
-    print(f"  scatter_add_rows negatives [{nflat.numel()}, {D + 1}]: "
-          f"{ms_n:.4f} ms vs plain {pl_n:.4f} ms")
+           "graphembedding_tpu/ops/pallas_scatter.py:67", 0.0,
+           k2["tokens"]["ms"], k2["tokens"]["plain_ms"],
+           k2["tokens"]["bound_ms"], k2["tokens"]["library_ms"])
 
     # 4. four steps through the kernels against four plain steps
     kw = dict(block_walks=4032, window=W, negative=5, neg_share_packs=nsp)
@@ -358,6 +385,8 @@ def line_phases(dev, card, records, record):
 
     from graphembedding_tpu_torch import LINE
     from graphembedding_tpu_torch.benchmarks import dma_gather, scatter_bench
+    from graphembedding_tpu_torch.benchmarks.common import (
+        median_ms, turns_ms)
     from graphembedding_tpu_torch.data import load_dataset
     from graphembedding_tpu_torch.eval.classify import Classifier
     from graphembedding_tpu_torch.models import line
@@ -383,22 +412,38 @@ def line_phases(dev, card, records, record):
                             device=dev) * 1e-3
         got = scatter_add_small(table.clone(), ids, grads)
         again = scatter_add_small(table.clone(), ids, grads)
+        k2 = scatter_add_rows(table.clone(), ids, grads)
         want = scatter_add_rows_plain(table.cpu(), ids.cpu(), grads.cpu())
         torch.cuda.synchronize()
-        if not torch.equal(got.cpu(), want) or not torch.equal(got, again):
+        if not (torch.equal(got.cpu(), want) and torch.equal(got, again)
+                and torch.equal(got, k2)):
             fail(f"scatter_add_small [{ids.numel()}, {D}]: not bit-equal to "
-                 f"the plain version on the CPU or not run-to-run identical")
+                 f"the plain version on the CPU and to K2, or not run-to-run "
+                 f"identical")
         buf = table.clone()
-        k4[name] = [median_ms(lambda: fn(buf, ids, grads)) for fn in (
-            scatter_add_small, scatter_add_rows_plain, scatter_add_rows)]
+        keep = (ids >= 0) & (ids < V)
+        ids_in, grads_in = ids[keep].long(), grads[keep].contiguous()
+        ms, lib_ms = turns_ms(lambda: scatter_add_small(buf, ids, grads),
+                              lambda: buf.index_add_(0, ids_in, grads_in))
+        k4[name] = dict(
+            ms=ms, library_ms=lib_ms,
+            plain_ms=median_ms(lambda: scatter_add_rows_plain(buf, ids,
+                                                              grads)),
+            k2_ms=median_ms(lambda: scatter_add_rows(buf, ids, grads)),
+            bound_ms=rows_bound_ms(ids, V, D, None))
+        launched = device_launches(lambda: scatter_add_small(buf, ids, grads))
         print(f"  scatter_add_small {name} [{ids.numel()}, {D}] into "
-              f"[{V}, {D}]: bit-equal to the CPU plain version; "
-              f"{k4[name][0]:.4f} ms vs plain {k4[name][1]:.4f} ms vs K2 "
-              f"{k4[name][2]:.4f} ms [{card}]", flush=True)
+              f"[{V}, {D}]: bit-equal to the CPU plain version and to K2; "
+              f"{ms:.4f} ms vs index_add_ {lib_ms:.4f} ms in turns, plain "
+              f"{k4[name]['plain_ms']:.4f} ms, K2 {k4[name]['k2_ms']:.4f} "
+              f"ms, bound {k4[name]['bound_ms']:.4f} ms; device launches a "
+              f"call: {'not measured' if launched is None else len(launched)}"
+              f" [{card}]", flush=True)
     record("scatter_add_small",
            "graphembedding_tpu_torch/csrc/scatter_small.cu",
            "graphembedding_tpu/ops/pallas_scatter.py:315", 0.0,
-           k4["ctx"][0], k4["ctx"][1])
+           k4["ctx"]["ms"], k4["ctx"]["plain_ms"], k4["ctx"]["bound_ms"],
+           k4["ctx"]["library_ms"])
 
     # 7. K5 through the ported dma_gather entry
     dma_gather_rows.launches = 0
@@ -411,9 +456,13 @@ def line_phases(dev, card, records, record):
     by = {r["variant"]: r for r in rows}
     k5 = min((r for r in rows if r["variant"].startswith("k5")),
              key=lambda r: r["best_s"])
+    # ids, the distinct rows read, the output written
+    k5_bytes = 4 * (k5["rows_gathered"] * (1 + k5["width"])
+                    + k5["unique_rows"] * k5["width"])
     record("dma_gather_rows", "graphembedding_tpu_torch/csrc/dma_gather.cu",
            "benchmarks/dma_gather.py:43", 0.0, k5["best_s"] * 1e3,
-           by["plain"]["best_s"] * 1e3)
+           by["plain"]["best_s"] * 1e3, k5_bytes / HBM_BYTES_PER_S * 1e3,
+           by["index_select"]["best_s"] * 1e3)
     print(f"  dma_gather_rows: fastest {k5['variant']}; launches "
           f"{k5_launches}", flush=True)
 

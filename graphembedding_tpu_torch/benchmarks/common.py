@@ -2,10 +2,13 @@
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import sys
 
 import torch
+
+HOLD_CYCLES = 4_000_000  # about 2 ms of the card's clock a queued call
 
 
 def require_card():
@@ -41,3 +44,40 @@ def best_seconds(fn, make_input, reps):
         if r > 0:
             best = min(best, a.elapsed_time(b) / 1e3)
     return best
+
+
+def timed_ms(fn, reps):
+    """Device ms a call of fn over reps calls between two CUDA events. The
+    card first spins while the host queues the calls, so the host's launch
+    time does not show between the events."""
+    torch.cuda._sleep(HOLD_CYCLES * reps)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def median_ms(fn, runs=20, warmup=3):
+    """Median of `runs` single calls timed by `timed_ms`, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    return statistics.median(timed_ms(fn, 1) for _ in range(runs))
+
+
+def turns_ms(kernel, other, rounds=10, reps=5):
+    """Median ms a call of kernel and of other, timed in turns (other,
+    kernel, kernel, other, ...) of `reps` calls each, so that drift of the
+    card's clocks falls on both alike."""
+    fns = (kernel, other)
+    for fn in fns:
+        for _ in range(3):
+            fn()
+    times = ([], [])
+    for _ in range(rounds):
+        for which in (1, 0, 0, 1):
+            times[which].append(timed_ms(fns[which], reps))
+    return statistics.median(times[0]), statistics.median(times[1])

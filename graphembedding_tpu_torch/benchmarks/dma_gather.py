@@ -4,13 +4,15 @@ Port of the JAX package's `benchmarks/dma_gather.py`, which asked whether
 hand-issued row DMAs beat XLA's row gather on the TPU. Here it gathers N
 random rows of a [V, W] float32 table on the card three ways:
 
-  plain     out = table[ids]            (in place of XLA's take)
-  k3        gather_rows: a warp per row, 16-byte loads
-  k5_b{B}   dma_gather_rows: a block per B ids, one cp.async.bulk a row
+  plain         out = table[ids]            (in place of XLA's take)
+  index_select  torch.index_select(table, 0, ids): the library call
+  k3            gather_rows: a warp per row, 16-byte loads
+  k5_b{B}       dma_gather_rows: a block per B ids, one cp.async.bulk a row
 
 Each variant prints one JSON line: ns_per_row (best of --reps timed calls,
 CUDA events, new ids each call, after one untimed call), whether every
-call's output equals table[ids], and the card's name and power limit.
+call's output equals table[ids], the mean number of distinct rows the
+timed calls gathered, and the card's name and power limit.
 
     python -m graphembedding_tpu_torch.benchmarks.dma_gather \
         [--rows 1048576] [--width 256] [--gather 65536] [--reps 5] \
@@ -70,14 +72,17 @@ def main(argv=None):
         best = best_seconds(call, make_ids, args.reps)
         same = all(torch.equal(out, dma_gather_rows_plain(table, ids))
                    for out, ids in equal)
+        unique = sum(ids.unique().numel() for _, ids in equal[1:]) / (
+            len(equal) - 1)
         row = {"variant": tag, "rows_gathered": N, "width": W,
-               "table_rows": V, "best_s": best,
+               "table_rows": V, "unique_rows": unique, "best_s": best,
                "ns_per_row": best / N * 1e9, "equal_to_plain": same,
                "card": card}
         print(json.dumps(row), flush=True)
         return row
 
     rows = [time_fn(dma_gather_rows_plain, "plain"),
+            time_fn(lambda t, i: torch.index_select(t, 0, i), "index_select"),
             time_fn(gather_rows, "k3")]
     for B in args.block_rows:
         rows.append(time_fn(functools.partial(dma_gather_rows, block_rows=B),

@@ -3,9 +3,9 @@
 Port of the JAX package's `benchmarks/pallas_scatter_bench.py`, at its
 shapes (C = 256 columns, N = 45,696 rows a call):
 
-- `--mode rmw`: K2 `scatter_add_rows` (sort, then one read-modify-write
-  per unique row; the time includes its sort) against the plain
-  `index_add_`, at V = 125k, 500k and 1M table rows;
+- `--mode rmw`: K2 `scatter_add_rows` (one launch: it groups the ids by
+  hand, then makes one read-modify-write per unique row) against the
+  plain `index_add_`, at V = 125k, 500k and 1M table rows;
 - `--mode matmul`: K4 `scatter_add_small` (a block per tile of table
   rows) against the plain `index_add_` and against K2, and K3
   `gather_rows` against the plain `index_select`, at V = 2405 and 10,312.

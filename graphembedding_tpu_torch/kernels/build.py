@@ -33,7 +33,8 @@ NVCC_FLAGS = [
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
-# name -> argtypes of each C entry point (restype is int: cudaError_t)
+# name -> argtypes of each C entry point (restype is int: cudaError_t,
+# except where RESTYPES says otherwise)
 SIGNATURES = {
     # device, yin, ld_yin, yout, ld_yout, vn, ld_vn, mask, neg_ok,
     # d_yin, d_yout, d_vn, loss, G, G2, PL, D, K, neg_w, smem, stream
@@ -41,14 +42,19 @@ SIGNATURES = {
                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # device, table, ld, V, ids, N, C, out, stream
     "ge_gather_rows": [_I, _P, _I64, _I, _P, _I, _I, _P, _P],
-    # device, table, ld, V, sorted_ids, order, grads, N, C, stream
-    "ge_scatter_add_rows": [_I, _P, _I64, _I, _P, _P, _P, _I, _I, _P],
+    # device, table, ld, V, ids, grads, N, C, scratch, stream
+    "ge_scatter_add_rows": [_I, _P, _I64, _I, _P, _P, _I, _I, _P, _P],
+    # N, V -> int32 elements of K2's scratch (returns int64)
+    "ge_scatter_add_rows_scratch": [_I, _I],
     # device, table, ld, V, ids, grads, N, C, stream
     "ge_scatter_add_small": [_I, _P, _I64, _I, _P, _P, _I, _I, _P],
     # device, table, V, ids, N, W, B, out, stream
     "ge_dma_gather_rows": [_I, _P, _I, _P, _I, _I, _I, _P, _P],
     "ge_error_string": [_I],
 }
+
+RESTYPES = {"ge_error_string": ctypes.c_char_p,
+            "ge_scatter_add_rows_scratch": _I64}
 
 # what the last build took and printed (ptxas register / spill report)
 build_log = {"seconds": None, "ptxas": ""}
@@ -126,7 +132,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_char_p if name == "ge_error_string" else _I
+        fn.restype = RESTYPES.get(name, _I)
     return lib
 
 

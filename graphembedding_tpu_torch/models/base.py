@@ -2,7 +2,8 @@
 
 Counterpart of `graphembedding_tpu/models/base.py` (the walk-block SGNS
 trainer only). Models accept a networkx graph or a
-`graphembedding_tpu_torch.Graph`, and run on the `device` they are given.
+`graphembedding_tpu_torch.Graph`, and run on the `device` they are given:
+the CUDA card by default, the CPU only when the caller asks for it.
 """
 
 from __future__ import annotations
@@ -28,16 +29,28 @@ def as_graph(graph) -> Graph:
     return graph if isinstance(graph, Graph) else Graph.from_nx(graph)
 
 
+def model_device(device) -> torch.device:
+    """The device a model runs on: the card unless the caller names the CPU.
+    A CUDA device where there is no card raises; nothing falls back to the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but torch sees no CUDA card; "
+            f"pass device='cpu' to run on the CPU")
+    return device
+
+
 class WalkEmbeddingModel:
     """Base of DeepWalk: walks -> SGNS -> embedding table."""
 
     def __init__(self, graph, walk_length: int, num_walks: int,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cuda"):
+        self.device = model_device(device)
         self.graph = as_graph(graph)
         self.walk_length = walk_length
         self.num_walks = num_walks
         self.seed = seed
-        self.device = torch.device(device)
         self.walks = None  # int32 [num_walks * V, walk_length] on device
         self.w_in = None
         self.w_out = None

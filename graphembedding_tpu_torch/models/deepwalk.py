@@ -15,7 +15,7 @@ from graphembedding_tpu_torch.ops.walk import simulate_walks
 
 class DeepWalk(WalkEmbeddingModel):
     def __init__(self, graph, walk_length=10, num_walks=80, workers=1,
-                 seed=0, device="cpu", mesh=None):
+                 seed=0, device="cuda", mesh=None):
         del workers  # reference API parity
         if mesh is not None:
             raise NotImplementedError(

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from graphembedding_tpu_torch.models.base import as_graph
+from graphembedding_tpu_torch.models.base import as_graph, model_device
 from graphembedding_tpu_torch.ops.alias import build_alias_table
 from graphembedding_tpu_torch.ops.rows import (
     gather_rows,
@@ -44,13 +44,13 @@ from graphembedding_tpu_torch.ops.rows import (
 from graphembedding_tpu_torch.train.skipgram import inverse_cdf_table
 
 # Most table rows whose scatters go to K4. K4 reads the whole id list once
-# per tile of rows, so its cost grows with V while K2's does not. The gate
-# started from the TPU caller's, V_pad * C * 4 <~ 10 MB (V = 20,480 at
-# C = 128; graphembedding_tpu/ops/pallas_scatter.py:31-32, :347-348). On an
-# H100 `benchmarks/scatter_bench.py --mode matmul` put the crossover with K2
-# between V = 61,440 and 81,920 at LINE's shapes (C = 128, 6,144 rows a
-# call) and between 49,152 and 61,440 at C = 256, 45,696 rows (PERF.md).
-SMALL_V_ROWS = 49_152
+# per tile of 16 rows, so its cost grows with V while K2's does not. On an
+# NVIDIA H100 (700 W) `benchmarks/scatter_bench.py --mode matmul --c 128
+# --rows 6144` (LINE's ctx call) gave K4 4.258 against K2 4.819 ns/row at
+# V = 16,384 and 5.871 against 4.863 at V = 24,576 (PERF.md). At C = 256,
+# 45,696 rows a call K2 is the faster from V = 2,405 on; LINE never
+# scatters that many rows.
+SMALL_V_ROWS = 16_384
 # steps a chunk of draws covers; a run is whole chunks, as in the JAX package
 CHUNK_STEPS = 512
 
@@ -215,9 +215,10 @@ def line_train(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
 class LINE:
     def __init__(self, graph, embedding_size=8, negative_ratio=5,
                  order="second", seed=0, k_shared=0, update_cap=8.0,
-                 device="cpu"):
+                 device="cuda"):
         if order not in ("first", "second", "all"):
             raise ValueError("order must be first / second / all")
+        self.device = model_device(device)
         self.graph = as_graph(graph)
         self.embedding_size = embedding_size
         self.negative_ratio = negative_ratio
@@ -225,7 +226,6 @@ class LINE:
         self.seed = seed
         self.k_shared = k_shared
         self.update_cap = update_cap
-        self.device = torch.device(device)
         self.losses = None
         self.sampled_edges = 0  # edges sampled by the last train()
         self._embeddings: Optional[Dict] = None

@@ -8,19 +8,23 @@ contract of `_rmw_kernel` (entry `scatter_add_rows`): `table.at[ids].add
 (grads)` with ids outside [0, V) dropped, as XLA's scatter drops them.
 K4 `scatter_add_small` replaces `_scatter_mm_kernel` (entry
 `scatter_add_matmul`): K2's contract for a small table, one block per tile
-of table rows (`csrc/scatter_small.cu`). K5 `dma_gather_rows` replaces
-`benchmarks/dma_gather.py::pallas_row_gather`: `table[ids]` by one bulk
-copy per row, B rows a block (`csrc/dma_gather.cu`).
+of table rows and column slice (`csrc/scatter_small.cu`). K5
+`dma_gather_rows` replaces `benchmarks/dma_gather.py::pallas_row_gather`:
+`table[ids]` by one bulk copy per row, B rows a block
+(`csrc/dma_gather.cu`).
 
-On the H100 K3 and K2 are bound by device-memory traffic. K3 reads each
-row with 16-byte loads, one warp per row. K2 follows the
-TPU kernel's design: a stable sort of the ids (PyTorch's, as the TPU
-kernel used XLA's), then one read-modify-write per unique row, each row's
-gradients added in their original order. That is the order of the plain
-version's sequential loop on the CPU, so the two agree bit for bit and the
-kernel is deterministic; its time is bound by the longest run of one id
-(see `csrc/rows.cu`). A wrapper takes its plain version only for tensors
-on the CPU; for CUDA tensors it launches its kernel or raises.
+On the H100 these kernels are bound by device-memory traffic and, at the
+paths' small shapes, by latency. K3 reads each row with 16-byte loads, one
+warp per row. K2 groups the ids by hand inside its one cooperative launch
+(no library sort): one stable counting pass when V + 1 <= 4096, else a
+stable radix sort over only bit_length(V) bits; then one warp per (unique
+row, column slice), or a whole block for a long run, adds the row's
+gradients in their original order (`csrc/rows.cu`). K4 makes the same sums in one
+launch with no sort (`csrc/scatter_small.cu`). That is the order of the
+plain version's sequential loop on the CPU, so K2, K4 and the plain
+version on the CPU agree bit for bit, and the kernels are deterministic.
+A wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -104,14 +108,15 @@ def scatter_add_rows(table, ids, grads):
     _check_grads(table, ids, grads, "scatter_add_rows")
     if not on_cuda:
         return scatter_add_rows_plain(table, ids, grads)
-    n = ids.shape[0]
+    n, v = ids.shape[0], table.shape[0]
     lib = kb.library()
-    sorted_ids, order = torch.sort(ids, stable=True)
+    # the kernel's keys, positions, counts and runs
+    scratch = torch.empty(lib.ge_scatter_add_rows_scratch(n, v),
+                          dtype=torch.int32, device=table.device)
     kb.check(lib.ge_scatter_add_rows(
         table.device.index, table.data_ptr(), table.stride(0),
-        table.shape[0], sorted_ids.data_ptr(), order.data_ptr(),
-        grads.data_ptr(), n, table.shape[1], kb.stream_ptr(table.device)),
-        "scatter_add_rows")
+        table.shape[0], ids.data_ptr(), grads.data_ptr(), n, table.shape[1],
+        scratch.data_ptr(), kb.stream_ptr(table.device)), "scatter_add_rows")
     scatter_add_rows.launches += 1
     return table
 
@@ -131,8 +136,6 @@ def scatter_add_small(table, ids, grads):
     _check_grads(table, ids, grads, "scatter_add_small")
     if not on_cuda:
         return scatter_add_rows_plain(table, ids, grads)
-    # a C too wide for a shared-memory row tile (above 10,224) is refused
-    # by the launch, and check() raises
     kb.check(kb.library().ge_scatter_add_small(
         table.device.index, table.data_ptr(), table.stride(0),
         table.shape[0], ids.data_ptr(), grads.data_ptr(), ids.shape[0],

@@ -8,8 +8,8 @@ imports no jax, so it also runs on a machine that has only PyTorch:
 Shapes are those of the DeepWalk-on-Wiki and LINE-on-Wiki steps and of the
 row benchmarks. Tolerances: the gathers (K3, K5) are exact; K1 rtol=2e-4,
 atol=1e-5 (split-TF32 products, f32 sums in another order) and the same
-bits from run to run; K2 and K4 are bit-equal to the
-plain version's sequential sum on the CPU; four SGNS steps rtol=1e-4,
+bits from run to run; K2 and K4 are bit-equal to the plain version's
+sequential sum on the CPU and to each other; four SGNS steps rtol=1e-4,
 atol=1e-6 and four LINE steps rtol=1e-5, atol=1e-6 (the plain version on
 the card scatters with atomics).
 """
@@ -101,23 +101,39 @@ def test_sgns_kernel_reads_column_slices(cuda, r):
                                    rtol=2e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("V,C,N", [(2405, 257, 40320), (50, 7, 3000),
-                                   (10, 1030, 64)])
-def test_row_kernels_match_plain(cuda, V, C, N):
-    rng = np.random.default_rng(4)
-    t = torch.from_numpy(rng.normal(size=(V, C)).astype(np.float32)).to(cuda)
-    i = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).to(cuda)
-    g = torch.from_numpy(
-        rng.normal(size=(N, C)).astype(np.float32) * 1e-2).to(cuda)
+# the DeepWalk step's two scatters (tokens [40320, 257], negatives
+# [5376, 129]) into 2,405 rows, the scatter benchmark's V = 1M, ragged ones;
+# with a hot row (every fourth id the same) or without
+@pytest.mark.parametrize("V,C,N,hot", [(2405, 257, 40320, False),
+                                       (2405, 257, 40320, True),
+                                       (2405, 129, 5376, False),
+                                       (1 << 20, 256, 45696, False),
+                                       (50, 7, 3000, False),
+                                       (10, 1030, 64, False),
+                                       (1, 33, 100, True)])
+def test_row_kernels_match_plain(cuda, V, C, N, hot):
+    """K3 is table[ids]; K2 is bit-equal to the plain version's sequential
+    sum on the CPU and the same from run to run; ids -3, V and V + 100 are
+    dropped."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    t = torch.randn((V, C), generator=gen, device=cuda)
+    i = torch.randint(0, V, (N,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    g = torch.randn((N, C), generator=gen, device=cuda) * 1e-2
     # a 16-byte-aligned slice (vector loads) and an unaligned one (scalar)
     for cols in (slice(0, C - C % 4), slice(1, C)):
         got = gather_rows(t[:, cols], i)
         assert torch.equal(got, gather_rows_plain(t[:, cols], i))
     bad = i.clone()
+    if hot:
+        bad[3::4] = bad[3]
     bad[::5] = -3
     bad[1::5] = V
+    bad[2::11] = V + 100
+    before = scatter_add_rows.launches
     got = scatter_add_rows(t.clone(), bad, g)
     again = scatter_add_rows(t.clone(), bad, g)
+    assert scatter_add_rows.launches == before + 2
     want = scatter_add_rows_plain(t.cpu(), bad.cpu(), g.cpu())
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
@@ -130,8 +146,9 @@ def test_row_kernels_match_plain(cuda, V, C, N):
                                    (10312, 256, 45696), (50, 7, 3000),
                                    (1, 33, 100), (40, 1030, 64)])
 def test_scatter_add_small_matches_plain(cuda, V, C, N):
-    """K4 is bit-equal to the plain version's sequential sum on the CPU,
-    and the same from run to run; ids -1, V and V + 100 are dropped."""
+    """K4 is bit-equal to the plain version's sequential sum on the CPU
+    and to K2, and the same from run to run; ids -1, V and V + 100 are
+    dropped."""
     rng = np.random.default_rng(5)
     t = torch.from_numpy(rng.normal(size=(V, C)).astype(np.float32)).to(cuda)
     i = rng.integers(0, V, N).astype(np.int32)
@@ -144,10 +161,12 @@ def test_scatter_add_small_matches_plain(cuda, V, C, N):
     got = scatter_add_small(t.clone(), i, g)
     again = scatter_add_small(t.clone(), i, g)
     assert scatter_add_small.launches == before + 2
+    k2 = scatter_add_rows(t.clone(), i, g)
     want = scatter_add_rows_plain(t.cpu(), i.cpu(), g.cpu())
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got, again)
+    assert torch.equal(got, k2)
 
 
 @pytest.mark.parametrize("V,W,N,B", [(1 << 20, 256, 1 << 16, 8),

@@ -75,7 +75,7 @@ def test_line_negative_table_vs_jax():
     can round to the next slot: 127 of the 2^20 slots differ here. Each
     such slot holds the id of a neighbouring slot of the JAX table."""
     g = tds.synthetic_wiki().graph
-    m = LINE(g, embedding_size=4)
+    m = LINE(g, embedding_size=4, device="cpu")
     src, _, w = g.edges()
     wdeg = np.zeros(g.num_nodes)
     np.add.at(wdeg, src, w.astype(np.float64))
@@ -165,7 +165,7 @@ def test_bulk_samples_distribution():
     schedule to f32 rounding."""
     g = tds.synthetic_wiki(num_nodes=60, num_classes=3, avg_degree=4,
                            seed=1).graph
-    m = LINE(g, embedding_size=4)
+    m = LINE(g, embedding_size=4, device="cpu")
     gen = torch.Generator().manual_seed(0)
     S, B, K = 600, 1024, 5
     hs, tposs, tnegs, lrs = tline.line_bulk_samples(
@@ -205,7 +205,7 @@ def test_tables_from_jax_give_same_embeddings(order):
                                        avg_degree=8, p_in=0.85,
                                        seed=3).graph,
                     embedding_size=8, order=order, seed=4)
-    m = LINE(ds.graph, embedding_size=8, order=order)
+    m = LINE(ds.graph, embedding_size=8, order=order, device="cpu")
     m.first_emb, m.second_emb, m.context_emb = line_tables_from_jax(
         jm.first_emb, jm.second_emb, jm.context_emb)
     got, want = m.get_embeddings(), jm.get_embeddings()
@@ -217,7 +217,8 @@ def test_tables_from_jax_give_same_embeddings(order):
 def test_line_trains_each_order_on_cpu():
     g = small_graph().graph
     for order in ("first", "second", "all"):
-        m = LINE(g, embedding_size=8, order=order, seed=1, k_shared=20)
+        m = LINE(g, embedding_size=8, order=order, seed=1, k_shared=20,
+                 device="cpu")
         ctx0 = m.context_emb.clone()
         m.train(batch_size=128, epochs=2)
         n_steps = round(2 * g.num_edges / 128)
@@ -251,7 +252,8 @@ def test_line_hard_sbm_gate():
     ds = tds.synthetic_wiki_hard()
     scores = []
     for seed in (0, 1):
-        m = LINE(ds.graph, embedding_size=64, order="second", seed=seed)
+        m = LINE(ds.graph, embedding_size=64, order="second", seed=seed,
+                 device="cpu")
         m.train(batch_size=1024, epochs=80)
         r = Classifier(m.get_embeddings()).split_train_evaluate(
             ds.X, ds.Y, 0.8, seed=0)
@@ -261,7 +263,7 @@ def test_line_hard_sbm_gate():
 
 
 def test_line_unsupported_options_raise():
-    m = LINE(small_graph().graph, embedding_size=4)
+    m = LINE(small_graph().graph, embedding_size=4, device="cpu")
     for kw in ({"trainer": "dense"}, {"mesh": object()}, {"sync_every": 4},
                {"checkpoint_dir": "ckpt"}, {"checkpoint_every": 2}):
         with pytest.raises(NotImplementedError):

@@ -73,7 +73,8 @@ def test_deepwalk_hard_sbm_gate():
     ds = tds.synthetic_wiki_hard()
     scores = []
     for seed in (0, 1, 2):
-        m = DeepWalk(ds.graph, walk_length=10, num_walks=20, seed=seed)
+        m = DeepWalk(ds.graph, walk_length=10, num_walks=20, seed=seed,
+                     device="cpu")
         m.train(embed_size=64, window_size=5, iter=3)
         r = Classifier(m.get_embeddings()).split_train_evaluate(
             ds.X, ds.Y, 0.8, seed=0)
@@ -84,7 +85,7 @@ def test_deepwalk_hard_sbm_gate():
 
 def test_unsupported_options_raise():
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
-    m = DeepWalk(ds.graph, walk_length=5, num_walks=2)
+    m = DeepWalk(ds.graph, walk_length=5, num_walks=2, device="cpu")
     for kw in ({"hs": 1}, {"trainer": "dense"}, {"mesh": object()},
                {"checkpoint_dir": "ckpt"}, {"cap_mode": "sparse"}):
         with pytest.raises(NotImplementedError):
@@ -93,13 +94,35 @@ def test_unsupported_options_raise():
         DeepWalk(ds.graph, mesh=object())
 
 
+@pytest.mark.parametrize("model", ["DeepWalk", "LINE"])
+def test_models_default_to_the_card(model):
+    """Without device= a model runs on the CUDA card; where there is none
+    it raises rather than run on the CPU. Validation errors come first."""
+    import torch
+
+    import graphembedding_tpu_torch as pkg
+
+    ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
+    cls = getattr(pkg, model)
+    bad = {"mesh": object()} if model == "DeepWalk" else {"order": "third"}
+    with pytest.raises((NotImplementedError, ValueError)):
+        cls(ds.graph, **bad)
+    if torch.cuda.is_available():
+        assert cls(ds.graph).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(ds.graph)
+    assert cls(ds.graph, device="cpu").device.type == "cpu"
+
+
 def test_port_imports_no_jax():
     code = ("import sys, graphembedding_tpu_torch, "
             "graphembedding_tpu_torch.train, graphembedding_tpu_torch.data, "
             "graphembedding_tpu_torch.interop, "
             "graphembedding_tpu_torch.models.line, "
             "graphembedding_tpu_torch.benchmarks.dma_gather, "
-            "graphembedding_tpu_torch.benchmarks.scatter_bench; "
+            "graphembedding_tpu_torch.benchmarks.scatter_bench, "
+            "graphembedding_tpu_torch.benchmarks.train_profile; "
             "assert 'jax' not in sys.modules; "
             "assert 'graphembedding_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
