@@ -29,11 +29,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import statistics
-import subprocess
 
 import torch
 
@@ -111,31 +109,10 @@ def build_variant(path, kernel):
     library of its own; returns it loaded."""
     with open(path) as f:
         src = KERNELS[kernel][1](f.read())
-    key = hashlib.sha256((" ".join(kb.NVCC_FLAGS) + src).encode())
-    out_dir = os.path.join(kb.BUILD_DIR, "phases")
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"{kernel}_{key.hexdigest()[:16]}.so")
-    log = lib[:-3] + ".log"
-    if not os.path.exists(lib):
-        cu = lib[:-3] + ".cu"
-        with open(cu, "w") as f:
-            f.write(src)
-        out = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-shared", "-o",
-                              lib, cu], capture_output=True, text=True)
-        if out.returncode:
-            raise RuntimeError(f"nvcc failed on {path}:\n{out.stdout}"
-                               f"{out.stderr}")
-        with open(log, "w") as f:
-            f.write(out.stdout + out.stderr)
-    dll = ctypes.CDLL(lib)
-    for name, argtypes in kb.SIGNATURES.items():
-        if hasattr(dll, name):
-            getattr(dll, name).argtypes = argtypes
-            getattr(dll, name).restype = kb.RESTYPES.get(name, ctypes.c_int)
+    dll, log = kb.build_text(src, "phases", kernel)
     dll.ge_read_marks.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     dll.kernel = kernel
-    with open(log) as f:  # ptxas: K2's registers and spills
-        lines = f.read().splitlines()
+    lines = log.splitlines()  # ptxas: K2's registers and spills
     dll.ptxas = [ln.strip() for i, ln in enumerate(lines)
                  if ("Used" in ln or "spill" in ln) and i > 0
                  and "scatter_add" in "".join(lines[max(0, i - 2):i])]

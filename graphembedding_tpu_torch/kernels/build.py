@@ -48,8 +48,8 @@ SIGNATURES = {
     "ge_scatter_add_rows_scratch": [_I, _I],
     # device, table, ld, V, ids, grads, N, C, stream
     "ge_scatter_add_small": [_I, _P, _I64, _I, _P, _P, _I, _I, _P],
-    # device, table, V, ids, N, W, B, out, stream
-    "ge_dma_gather_rows": [_I, _P, _I, _P, _I, _I, _I, _P, _P],
+    # device, table, V, ids, N, W, B, stages, grid, smem, out, stream
+    "ge_dma_gather_rows": [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "ge_error_string": [_I],
 }
 
@@ -125,15 +125,44 @@ def build():
     return out
 
 
+def _bind(lib, names):
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = RESTYPES.get(name, _I)
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, _I)
-    return lib
+    return _bind(ctypes.CDLL(build()), SIGNATURES)
+
+
+def build_text(src, subdir, tag):
+    """Compile one CUDA source text (a benchmark's variant of a kernel)
+    into a library of its own under BUILD_DIR/subdir, keyed by its hash,
+    unless it exists. Returns (the loaded library, with the entry points
+    of SIGNATURES that it has bound, nvcc's output)."""
+    key = hashlib.sha256((" ".join(NVCC_FLAGS) + src).encode())
+    out_dir = os.path.join(BUILD_DIR, subdir)
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, f"{tag}_{key.hexdigest()[:16]}.so")
+    log = lib[:-3] + ".log"
+    if not os.path.exists(lib):
+        cu = lib[:-3] + ".cu"
+        with open(cu, "w") as f:
+            f.write(src)
+        out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib,
+                              cu], capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"nvcc failed on {tag}:\n{out.stdout}"
+                               f"{out.stderr}")
+        with open(log, "w") as f:
+            f.write(out.stdout + out.stderr)
+    dll = ctypes.CDLL(lib)
+    with open(log) as f:
+        return _bind(dll, [n for n in SIGNATURES if hasattr(dll, n)]), f.read()
 
 
 def check(err: int, what: str) -> None:

@@ -10,8 +10,9 @@ K4 `scatter_add_small` replaces `_scatter_mm_kernel` (entry
 `scatter_add_matmul`): K2's contract for a small table, one block per tile
 of table rows and column slice (`csrc/scatter_small.cu`). K5
 `dma_gather_rows` replaces `benchmarks/dma_gather.py::pallas_row_gather`:
-`table[ids]` by one bulk copy per row, B rows a block
-(`csrc/dma_gather.cu`).
+`table[ids]` by one bulk copy per row into a ring of B-row stages, each
+stage written out by one bulk store, on a persistent grid
+(`csrc/dma_gather.cu`; the plan from `dma_gather_plan`).
 
 On the H100 these kernels are bound by device-memory traffic and, at the
 paths' small shapes, by latency. K3 reads each row with 16-byte loads, one
@@ -28,6 +29,8 @@ tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -146,10 +149,50 @@ def scatter_add_small(table, ids, grads):
 
 scatter_add_small.launches = 0
 
-# K5's limits: 16-byte rows (the bulk copy's unit) and B rows of the block's
-# shared-memory staging within the 227 KB a block may have
+# K5's limits: 16-byte rows (the bulk copy's unit), at most 256 rows and 8
+# ring slots of a stage, and one stage within the 227 KB a block may have
 DMA_MAX_BLOCK_ROWS = 256
+DMA_MAX_STAGES = 8
 DMA_MAX_STAGE_BYTES = 227 * 1024 - 2048
+# K5's plan: the 228 KB of shared memory an SM holds, less what each block
+# reserves (1 KB) and keeps beside its ring (barriers, pad masks)
+DMA_SMEM_PER_SM = 228 * 1024
+DMA_BLOCK_RESERVE = 2048
+# the most blocks an SM runs; the plan takes fewer where two stages of each
+# would not fit
+DMA_BLOCKS_PER_SM = 32
+
+
+def dma_gather_plan(n, w, block_rows, sms, blocks_per_sm=DMA_BLOCKS_PER_SM,
+                    max_stages=DMA_MAX_STAGES):
+    """K5's launch plan for N ids of W-float rows, B = block_rows rows a
+    stage, on a card of `sms` SMs: (stages S of each block's ring, grid,
+    dynamic shared bytes a block).
+
+    The grid is persistent: at most blocks_per_sm blocks an SM, never more
+    than the N / B stages. S is the most stages (up to max_stages) that
+    fit a block's share of the SM's shared memory; fewer blocks share an
+    SM where two stages a block would not fit, and S = 1 where even one
+    block holds only one stage. S never exceeds the stages a block takes.
+    """
+    stage = block_rows * w * 4
+    n_stages = n // block_rows
+    blocks = blocks_per_sm
+    while (blocks > 1 and DMA_SMEM_PER_SM // blocks - DMA_BLOCK_RESERVE
+           < 2 * stage):
+        blocks -= 1
+    grid = max(1, min(n_stages, blocks * sms))
+    per_block = DMA_SMEM_PER_SM // blocks - DMA_BLOCK_RESERVE
+    stages = max(1, min(max_stages, per_block // stage,
+                        -(-n_stages // grid)))
+    return stages, grid, stages * stage
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index):
+    """The SMs of a CUDA card, read once."""
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
 
 
 def dma_gather_rows_plain(table, ids):
@@ -159,9 +202,10 @@ def dma_gather_rows_plain(table, ids):
 
 def dma_gather_rows(table, ids, block_rows=16):
     """K5: table[ids] -> new [N, W] float32 tensor, one bulk copy per row,
-    `block_rows` (B) rows a block. Requires N % B == 0 and W % 4 == 0, as
-    the TPU benchmark did; an id outside [0, V) gives a zero row on the
-    card (the plain version raises)."""
+    `block_rows` (B) rows a stage of a block's ring (`dma_gather_plan`).
+    Requires N % B == 0 and W % 4 == 0, as the TPU benchmark did; an id
+    outside [0, V) gives a zero row on the card (the plain version
+    raises)."""
     on_cuda = _check_rows(table, ids, "dma_gather_rows")
     n, w = ids.shape[0], table.shape[1]
     if not 1 <= block_rows <= DMA_MAX_BLOCK_ROWS or n % block_rows:
@@ -176,12 +220,20 @@ def dma_gather_rows(table, ids, block_rows=16):
     if not table.is_contiguous() or table.data_ptr() % 16:
         raise ValueError("dma_gather_rows: table must be contiguous and "
                          "16-byte aligned")
-    lib = kb.library()
+    plan = dma_gather_plan(n, w, block_rows, sm_count(table.device.index))
+    return dma_gather_launch(table, ids, block_rows, plan)
+
+
+def dma_gather_launch(table, ids, block_rows, plan):
+    """Launch K5 on checked CUDA tensors with a given (stages, grid,
+    shared bytes) plan; `dma_gather_rows` is the entry point, this lets
+    the benchmark time other plans. Counts in `dma_gather_rows.launches`."""
+    n, w = ids.shape[0], table.shape[1]
     out = torch.empty((n, w), dtype=torch.float32, device=table.device)
-    kb.check(lib.ge_dma_gather_rows(
+    kb.check(kb.library().ge_dma_gather_rows(
         table.device.index, table.data_ptr(), table.shape[0], ids.data_ptr(),
-        n, w, block_rows, out.data_ptr(), kb.stream_ptr(table.device)),
-        "dma_gather_rows")
+        n, w, block_rows, *plan, out.data_ptr(),
+        kb.stream_ptr(table.device)), "dma_gather_rows")
     dma_gather_rows.launches += 1
     return out
 

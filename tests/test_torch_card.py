@@ -22,6 +22,7 @@ from graphembedding_tpu_torch.graph import Graph
 from graphembedding_tpu_torch.models import line
 from graphembedding_tpu_torch.models.line import LINE
 from graphembedding_tpu_torch.ops.rows import (
+    dma_gather_plan,
     dma_gather_rows,
     dma_gather_rows_plain,
     gather_rows,
@@ -29,6 +30,7 @@ from graphembedding_tpu_torch.ops.rows import (
     scatter_add_rows,
     scatter_add_rows_plain,
     scatter_add_small,
+    sm_count,
 )
 from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads,
@@ -192,6 +194,45 @@ def test_dma_gather_matches_plain(cuda, V, W, N, B):
     ok = (bad >= 0) & (bad < V)
     assert torch.equal(got[ok], t[bad[ok].long()])
     assert not got[~ok].any()
+
+
+# the ring wrapped many times (N / B far above grid x S), fewer stages than
+# blocks a card holds, one row a stage, 256 rows of 16 bytes a stage, all
+# ids outside [0, V), one hot row, a one-stage ring wrapped
+@pytest.mark.parametrize("V,W,N,B,case", [
+    (4096, 256, 1 << 20, 8, "wraps"), (1000, 256, 160, 16, "few"),
+    (777, 8, 3001, 1, "b1"), (5000, 4, 256 * 600, 256, "b256"),
+    (1 << 20, 256, 1 << 16, 16, "pads"), (2405, 256, 40320, 16, "hot"),
+    (500, 2048, 16 * 132 * 12, 16, "s1")])
+def test_dma_gather_ring(cuda, V, W, N, B, case):
+    """K5's ring of stages: bit-equal to table[ids] and the same from run
+    to run however often a slot is reused; every id outside [0, V) gives
+    zero rows; every id one hot row gives copies of it."""
+    stages, grid, _ = dma_gather_plan(N, W, B, sm_count(cuda.index or 0))
+    if case == "wraps":  # each slot reused some 20 times
+        assert N // B >= 40 * grid * stages
+    if case == "s1":  # a ring of one 128 KB stage, reused by each block
+        assert stages == 1 and N // B >= 10 * grid
+    if case == "few":
+        assert grid == N // B < sm_count(cuda.index or 0)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    t = torch.randn((V, W), generator=gen, device=cuda)
+    i = torch.randint(0, V, (N,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    if case == "pads":
+        i = torch.where(i % 2 == 0, -1 - i, V + i)
+    if case == "hot":
+        i.fill_(V // 3)
+    before = dma_gather_rows.launches
+    got = dma_gather_rows(t, i, block_rows=B)
+    again = dma_gather_rows(t, i, block_rows=B)
+    assert dma_gather_rows.launches == before + 2
+    torch.cuda.synchronize()
+    if case == "pads":
+        assert not got.any()
+    else:
+        assert torch.equal(got, dma_gather_rows_plain(t, i))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("order,k_shared", [("first", 0), ("second", 0),

@@ -23,6 +23,11 @@ import torch
 
 from graphembedding_tpu.ops.pallas_scatter import scatter_add_matmul
 from graphembedding_tpu_torch.ops.rows import (
+    DMA_BLOCK_RESERVE,
+    DMA_BLOCKS_PER_SM,
+    DMA_MAX_STAGES,
+    DMA_SMEM_PER_SM,
+    dma_gather_plan,
     dma_gather_rows,
     dma_gather_rows_plain,
     scatter_add_rows_plain,
@@ -123,6 +128,34 @@ def test_dma_gather_checks_inputs():
         dma_gather_rows(torch.zeros((10, 2048)), i, block_rows=48)
     with pytest.raises(ValueError):
         dma_gather_rows(t, i.long(), block_rows=16)
+
+
+# the benchmark's default shape at each B, the DeepWalk gather's, a stage
+# too large to fit twice, fewer stages than blocks, one row a stage, 256
+# rows of 16 bytes; on an H100 (132 SMs) and on a small card
+@pytest.mark.parametrize("n,w,b", [(1 << 16, 256, 8), (1 << 16, 256, 16),
+                                   (1 << 16, 256, 32), (40320, 256, 16),
+                                   (64, 2048, 16), (160, 256, 16),
+                                   (3001, 8, 1), (256 * 600, 4, 256)])
+@pytest.mark.parametrize("sms", [132, 4])
+def test_dma_gather_plan(n, w, b, sms):
+    """K5's launch plan: S >= 1 ring stages that fit a block's share of an
+    SM's shared memory, a grid of at most N / B blocks, and S no larger
+    than the stages a block takes."""
+    stages, grid, smem = dma_gather_plan(n, w, b, sms)
+    stage = b * w * 4
+    assert 1 <= stages <= DMA_MAX_STAGES and smem == stages * stage
+    assert 1 <= grid <= min(n // b, DMA_BLOCKS_PER_SM * sms)
+    # within a block's 227 KB, and the blocks an SM gets fit beside it
+    assert smem + 1024 <= 227 * 1024
+    per_sm = DMA_SMEM_PER_SM // (smem + DMA_BLOCK_RESERVE)
+    assert per_sm >= min(DMA_BLOCKS_PER_SM, -(-grid // sms))
+    assert stages <= -(-(n // b) // grid)
+    if stage * 2 > DMA_SMEM_PER_SM - DMA_BLOCK_RESERVE:
+        assert stages == 1  # W = 2048, B = 16: one 128 KB stage
+    if (w, b) == (256, 16) and n == 1 << 16:
+        # the benchmark's shape: six blocks an SM, two stages of 16 KB each
+        assert (stages, grid) == (2, min(n // b, 6 * sms))
 
 
 @pytest.mark.parametrize("module", ["dma_gather", "scatter_bench"])
