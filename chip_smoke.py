@@ -34,7 +34,22 @@ Phases, one or more lines each:
  10. LINE path: load_dataset('wiki') -> LINE(embedding_size=128,
      order='second', device='cuda') -> train(batch_size=1024, epochs=50)
      -> get_embeddings -> Classifier; checks that K3 and K4 launched and
-     micro-F1 >= 0.70.
+     micro-F1 >= 0.70;
+ 11. Node2Vec path: load_dataset('wiki') -> Node2Vec(walk_length=10,
+     num_walks=80, p=0.25, q=4, device='cuda') -> train(embed_size=128,
+     window_size=5, iter=3) -> get_embeddings -> Classifier; checks that
+     the exact sampler was chosen, that K1, K2 and K3 launched, and
+     micro-F1 >= 0.90; prints walk and train seconds and rates, and the
+     walks' share of the two from a warm walk (the graph's views built)
+     against a warm train, each the faster of two;
+ 12. walk modes on the card: simulate_walks on the Wiki graph by the
+     exact sampler, dense and CSR rejection and weighted walks, each on a
+     fresh copy of the graph so that its cold run builds the views it
+     reads (every hop an edge, two runs from one seed bit-identical, cold
+     and warm seconds, walked edges/s, the device's busy time in one warm
+     run by torch.profiler), then exact against dense rejection on a
+     512-out-regular graph of 20,000 nodes (p = 0.25, q = 4, one walk of
+     10 a node).
 
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
@@ -55,11 +70,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 MIN_MICRO_F1 = 0.93  # expected of DeepWalk on the Wiki-scale graph
 # LINE order 'second' on it: the JAX package gives 0.748-0.761 on the CPU
 # over seeds 0-2, and the port's random streams differ from its
 LINE_MIN_MICRO_F1 = 0.70
+N2V_MIN_MICRO_F1 = 0.90  # Node2Vec (p = 0.25, q = 4) on the same graph
 DEVICE = "cuda"
 
 
@@ -94,9 +112,9 @@ def rows_bound_ms(ids, V, C, out_rows):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def device_launches(fn):
-    """Device kernels (and copies) one call of fn ran, by torch.profiler;
-    None where the trace holds no device events."""
+def device_events(fn):
+    """(name, us) of each device kernel (and copy) one call of fn ran, by
+    torch.profiler; None where the trace holds no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -106,9 +124,15 @@ def device_launches(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    return names or None
+    events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    return events or None
+
+
+def device_launches(fn):
+    """Names of the device kernels one call of fn ran, or None."""
+    events = device_events(fn)
+    return events and [name for name, _ in events]
 
 
 def sgns_work(G, G2, PL, D, K):
@@ -184,7 +208,7 @@ def main():
     V, D, L, W, K, nsp = ds.graph.num_nodes, 128, 10, 5, 64, 4
     NW = 80 * V
     gen = torch.Generator(device=dev).manual_seed(1)
-    walks = simulate_walks(ds.graph.to(dev), 80, L, generator=gen)
+    walks = simulate_walks(ds.graph, 80, L, generator=gen)
     if tuple(walks.shape) != (NW, L):
         fail(f"corpus shape {tuple(walks.shape)}")
     geo = sg.block_geometry(NW, L, 4032, nsp)
@@ -348,7 +372,7 @@ def main():
     for r in records:
         r["launches"] = launches[r["name"]]
 
-    table = model.embedding_table
+    table = model.embedding_table.clone()
     if tuple(table.shape) != (V, 128) or not torch.isfinite(table).all():
         fail(f"embeddings: shape {tuple(table.shape)} or non-finite")
     if len(emb) != V:
@@ -369,6 +393,7 @@ def main():
         fail("jax was imported")
 
     line_phases(dev, card, records, record)
+    node2vec_phases(dev, card)
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
@@ -527,6 +552,173 @@ def line_phases(dev, card, records, record):
           f"{res['macro']:.4f} [{card}]", flush=True)
     if not res["micro"] >= LINE_MIN_MICRO_F1:
         fail(f"LINE micro-F1 {res['micro']:.4f} < {LINE_MIN_MICRO_F1}")
+
+
+def walk_hops(walks):
+    """(u, v) of every hop taken in walks [B, L] (host int64 arrays)."""
+    w = walks.cpu().numpy().astype(np.int64)
+    u, v = w[:, :-1].ravel(), w[:, 1:].ravel()
+    return u[v >= 0], v[v >= 0]
+
+
+def check_hops(walks, graph, what):
+    """Fails unless every hop of walks follows an edge of graph."""
+    u, v = walk_hops(walks)
+    V = graph.num_nodes
+    src, dst, _ = graph.edges()
+    if not np.isin(u * V + v, src * V + dst).all():
+        fail(f"{what}: a hop follows no edge of the graph")
+    return u.size
+
+
+def busy_text(fn):
+    """The device's busy time in one call of fn: the sum of its device
+    events' intervals (one stream, so none overlap)."""
+    events = device_events(fn)
+    if events is None:
+        return "device busy not measured"
+    busy = sum(us for _, us in events) / 1e3
+    return f"device busy {busy:.4f} ms in {len(events)} device events"
+
+
+def timed_walks(fn):
+    """(walks, host seconds) of fn(), synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walks = fn()
+    torch.cuda.synchronize()
+    return walks, time.perf_counter() - t0
+
+
+def node2vec_phases(dev, card):
+    """Phases 11-12: the Node2Vec path and the walk modes on the card."""
+    import torch
+
+    from graphembedding_tpu_torch import Graph, Node2Vec
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.ops.rows import (
+        gather_rows, scatter_add_rows)
+    from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
+    from graphembedding_tpu_torch.ops.walk import simulate_walks
+
+    # 11. the Node2Vec path, counting launches
+    kernels = (sgns_block_grads, scatter_add_rows, gather_rows)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = load_dataset("wiki")
+    t1 = time.perf_counter()
+    model = Node2Vec(ds.graph, walk_length=10, num_walks=80, p=0.25, q=4,
+                     device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    model.train(embed_size=128, window_size=5, iter=3)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    emb = model.get_embeddings()
+    res = Classifier(emb).split_train_evaluate(ds.X, ds.Y, 0.8, seed=0)
+    t4 = time.perf_counter()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"Node2Vec path launches: {launches}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} never launched on the Node2Vec path")
+    print(f"Node2Vec sampler: {model.sampler} (max out-degree "
+          f"{ds.graph.max_degree}) [{card}]", flush=True)
+    if model.sampler != "exact":
+        fail(f"Node2Vec on Wiki chose {model.sampler!r}, not 'exact'")
+    V = ds.graph.num_nodes
+    table = model.embedding_table.clone()
+    if tuple(table.shape) != (V, 128) or not torch.isfinite(table).all():
+        fail(f"Node2Vec embeddings: shape {tuple(table.shape)} or "
+             f"non-finite")
+    if len(emb) != V or not torch.isfinite(model.losses).all():
+        fail("Node2Vec: embeddings missing or losses non-finite")
+    edges = check_hops(model.walks, ds.graph, "Node2Vec corpus")
+    # the constructor's walk is cold: it builds the graph's views on the
+    # card on its way. The share compares warm walks, from the model's
+    # seed over the views now built, with warm trains on those walks.
+
+    def walk():
+        gen = torch.Generator(device=dev).manual_seed(model.seed)
+        return simulate_walks(ds.graph, 80, 10, generator=gen,
+                              kind="node2vec", p=0.25, q=4.0,
+                              sampler=model.sampler)
+
+    def train():
+        model.train(embed_size=128, window_size=5, iter=3)
+
+    walks, walk_s = min((timed_walks(walk) for _ in range(2)),
+                        key=lambda r: r[1])
+    if not torch.equal(walks, model.walks):
+        fail("Node2Vec: a walk from the model's seed differs from its own")
+    train_s = min(timed_walks(train)[1] for _ in range(2))
+    retrain_diff = float((model.embedding_table - table).abs().max())
+    print(f"Node2Vec path: dataset {t1 - t0:.3f} s, constructor (views "
+          f"and walks, cold) {t2 - t1:.4f} s, train {t3 - t2:.4f} s, "
+          f"classify {t4 - t3:.3f} s; final loss "
+          f"{float(model.losses[-1]):.4f}; a warm train's table against "
+          f"the first: max abs diff {retrain_diff:.3e}", flush=True)
+    print(f"Node2Vec walks (warm): {walk_s:.4f} s, {edges / walk_s:.4e} "
+          f"walked edges/s ({edges} edges) [{card}]")
+    print(f"Node2Vec train (warm): {train_s:.4f} s, "
+          f"{model.trained_pairs / train_s:.4e} trained pairs/s "
+          f"({model.trained_pairs:.0f} pairs) [{card}]")
+    print(f"Node2Vec walks' share of walk + train, warm: "
+          f"{walk_s / (walk_s + train_s):.4f} [{card}]")
+    print(f"Node2Vec micro-F1: {res['micro']:.4f}, macro-F1: "
+          f"{res['macro']:.4f} [{card}]", flush=True)
+    if not res["micro"] >= N2V_MIN_MICRO_F1:
+        fail(f"Node2Vec micro-F1 {res['micro']:.4f} < {N2V_MIN_MICRO_F1}")
+
+    # 12. the walk modes on the Wiki graph: cold, on a fresh copy of the
+    # graph whose views are not built yet, then two warm runs from one
+    # seed that must agree bit for bit
+    modes = [("node2vec", "exact"), ("node2vec", "rejection_dense"),
+             ("node2vec", "rejection"), ("weighted", None)]
+    for kind, sampler in modes:
+        g = Graph(*ds.graph.edges(), num_nodes=V)
+
+        def run():
+            gen = torch.Generator(device=dev).manual_seed(5)
+            return simulate_walks(g, 80, 10, generator=gen, kind=kind,
+                                  p=0.25, q=4.0, sampler=sampler)
+        _, cold = timed_walks(run)
+        a, s_a = timed_walks(run)
+        b, s_b = timed_walks(run)
+        if not torch.equal(a, b):
+            fail(f"walks {kind}/{sampler}: two runs from one seed differ")
+        edges = check_hops(a, g, f"walks {kind}/{sampler}")
+        warm = min(s_a, s_b)
+        print(f"walks {kind}/{sampler or 'alias'} on Wiki [{a.shape[0]}, "
+              f"{a.shape[1]}]: every hop an edge, bit-identical from one "
+              f"seed; cold {cold:.4f} s, warm {warm:.4f} s, "
+              f"{edges / warm:.4e} walked edges/s; {busy_text(run)} "
+              f"[{card}]", flush=True)
+
+    # exact against dense rejection where the JAX package's rule sends a
+    # graph to rejection (a TPU crossover, not re-measured here)
+    V, d = 20_000, 512
+    rng = np.random.default_rng(0)
+    g = Graph(np.repeat(np.arange(V, dtype=np.int64), d),
+              rng.integers(0, V, V * d), num_nodes=V)
+    for sampler in ("exact", "rejection_dense"):
+        def run():
+            gen = torch.Generator(device=dev).manual_seed(7)
+            return simulate_walks(g, 1, 10, generator=gen, kind="node2vec",
+                                  p=0.25, q=4.0, sampler=sampler)
+        _, cold = timed_walks(run)
+        walks, warm = min((timed_walks(run) for _ in range(2)),
+                          key=lambda r: r[1])
+        edges = check_hops(walks, g, f"{d}-regular {sampler}")
+        print(f"walks node2vec/{sampler} on a {d}-out-regular graph of {V} "
+              f"nodes [{walks.shape[0]}, {walks.shape[1]}]: cold "
+              f"{cold:.4f} s, warm {warm:.4f} s, {edges / warm:.4e} walked "
+              f"edges/s; {busy_text(run)} [{card}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -128,7 +128,7 @@ def step_scatters(dev):
     graph = load_dataset("wiki").graph
     V, L, Bw, D = graph.num_nodes, 10, 4032, 128
     gen = torch.Generator(device=dev).manual_seed(1)
-    walks = simulate_walks(graph.to(dev), 80, L, generator=gen)
+    walks = simulate_walks(graph, 80, L, generator=gen)
     tok = walks[:Bw].reshape(-1).contiguous()
     neg = torch.randint(0, V, (84 * 64,), generator=gen, device=dev,
                         dtype=torch.int32)

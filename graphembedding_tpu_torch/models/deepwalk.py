@@ -15,16 +15,17 @@ from graphembedding_tpu_torch.ops.walk import simulate_walks
 
 class DeepWalk(WalkEmbeddingModel):
     def __init__(self, graph, walk_length=10, num_walks=80, workers=1,
-                 seed=0, device="cuda", mesh=None):
+                 seed=0, device="cuda", mesh=None, walk_exchange=None):
         del workers  # reference API parity
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported to graphembedding_tpu_torch")
+        for name, value in (("mesh", mesh), ("walk_exchange", walk_exchange)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}= is not ported to graphembedding_tpu_torch")
         super().__init__(graph, walk_length, num_walks, seed, device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        self.walks = simulate_walks(self.graph.to(self.device), num_walks,
-                                    walk_length, generator=gen)
+        self.walks = simulate_walks(self.graph, num_walks, walk_length,
+                                    generator=gen)
 
     def train(self, embed_size=128, window_size=5, workers=None, iter=5,
               **kwargs):

@@ -1,19 +1,108 @@
-"""Uniform random walks (DeepWalk) in plain PyTorch.
+"""Random walks in plain PyTorch: uniform, weighted and (p,q) second order.
 
-Counterpart of `graphembedding_tpu/ops/walk.py::uniform_walks` and
-`simulate_walks(kind='uniform')`. Every walker advances in lockstep: one
-hop is two gathers (offset and degree of the current node), one uniform
-draw and one gather from `col_idx`. A walk that reaches a node without
-out-edges stops there and the rest of its row is -1. Walks are int32
-[B, L]. The draws come from a `torch.Generator`, so the walks follow the
-same distribution as the JAX package's, not the same values.
+Counterpart of `graphembedding_tpu/ops/walk.py`. Every walker advances in
+lockstep, one hop a step of a Python loop over the walk's length:
+
+  * `uniform_walks` (JAX `uniform_walks`, DeepWalk): the next hop uniform
+    over the out-neighbors; two gathers (offset, degree), one uniform, one
+    gather from `col_idx`.
+  * `weighted_walks` (JAX `weighted_walks`): first order, weighted, one
+    alias draw a hop from the per-row tables (`ops.alias.alias_draw`).
+  * `node2vec_walks` (JAX `node2vec_walks`): the exact (p,q) walk. Each
+    candidate of cur's padded row scores w * {1/p, 1, 1/q} by its class
+    against prev, and a Gumbel-max draw picks one. Membership in N(prev)
+    is exact: a batched `torch.searchsorted` of every candidate in prev's
+    sorted row (its -1 pads raised to a sentinel above every id), in place
+    of the JAX package's chunked equality test.
+  * `node2vec_walks_rejection` (JAX `node2vec_walks_rejection`, the
+    reference's `node2vec_walk2`): alias proposals from N(cur) accepted at
+    factor / envelope, with the prev-point envelope mixture or the plain
+    upper bound, membership by binary search in the CSR (`csr_find`) or in
+    prev's resident padded row, and the JAX package's analytic retry
+    budget. Its retry loop is a fixed number of rounds, walkers already
+    done masked out: the same law as the JAX `while_loop`, with no host
+    sync a round.
+
+A walk that reaches a node without out-edges stops there and the rest of
+its row is -1. Walks are int32 [B, L]. The draws come from a
+`torch.Generator`, so the walks follow the JAX package's distributions,
+not its values; two runs from one seed are bit-identical.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from graphembedding_tpu_torch.graph import DeviceGraph
+from graphembedding_tpu_torch.ops.alias import alias_draw
+
+_LANE = 128  # the JAX package's neighbor-axis padding, for its thresholds
+_SENTINEL = torch.iinfo(torch.int32).max  # above every node id
+_PQ_BUDGET_BYTES = 4 << 30  # the JAX package's device-memory budget
+
+
+def _safe(cur):
+    """Dead (-1) walker ids clamped to 0 for gathers; callers mask."""
+    return cur.clamp(min=0)
+
+
+def _nonempty(table, fill):
+    """`table`, or one `fill` slot where it is empty: an edgeless graph
+    still needs a slot to gather from (every read of it is masked)."""
+    if table.shape[0]:
+        return table
+    return torch.full((1,), fill, dtype=table.dtype, device=table.device)
+
+
+def _first_column(starts, length):
+    out = torch.empty((starts.shape[0], length), dtype=torch.int32,
+                      device=starts.device)
+    out[:, 0] = starts.to(torch.int32)
+    return out
+
+
+def csr_find(row_ptr, col_idx, degree, rows, values, *, max_degree):
+    """Position of `values[...]` in CSR row `rows[...]` (any one shape).
+
+    A binary search over the sorted columns of each row, in a fixed
+    `bit_length(max_degree)` steps. `rows` must be valid (>= 0). Returns
+    (found bool, idx int64): `idx` is the global CSR slot of the match,
+    meaningful only where found.
+    """
+    col = _nonempty(col_idx, -1)
+    last = col.shape[0] - 1
+    lo = row_ptr[rows]
+    end = lo + degree[rows]
+    hi = end
+    for _ in range(max(int(max_degree).bit_length(), 1)):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        go_right = col[mid.clamp(max=last)] < values
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    found = (lo < end) & (col[lo.clamp(max=last)] == values)
+    return found, lo
+
+
+def csr_contains(row_ptr, col_idx, degree, rows, values, *, max_degree):
+    """Is `values[...]` in CSR row `rows[...]`?"""
+    found, _ = csr_find(row_ptr, col_idx, degree, rows, values,
+                        max_degree=max_degree)
+    return found
+
+
+def sorted_rows(rows):
+    """Padded neighbor rows (ascending ids, then -1 pads) with the pads
+    raised to a sentinel above every id, so each row sorts ascending."""
+    return torch.where(rows >= 0, rows, _SENTINEL)
+
+
+def rows_contain(srt, cand):
+    """cand[b, j] in srt[b, :]? for rows from `sorted_rows` (exact; a -1
+    candidate is in no row)."""
+    pos = torch.searchsorted(srt, cand.contiguous())
+    return srt.gather(1, pos.clamp_(max=srt.shape[1] - 1)) == cand
 
 
 def uniform_walks(row_ptr, col_idx, degree, starts, *, length, generator):
@@ -25,17 +114,12 @@ def uniform_walks(row_ptr, col_idx, degree, starts, *, length, generator):
     device = starts.device
     cur = starts.to(torch.int64)
     num_edges = col_idx.shape[0]
-    # an empty edge list still needs one slot to gather from; every read
-    # of it is masked because no node then has a neighbour
-    col = (col_idx.to(torch.int64) if num_edges
-           else torch.full((1,), -1, dtype=torch.int64, device=device))
+    col = _nonempty(col_idx, -1).to(torch.int64)
     deg_all = degree.to(torch.int64)
-    out = torch.empty((cur.shape[0], length), dtype=torch.int32,
-                      device=device)
-    out[:, 0] = cur.to(torch.int32)
+    out = _first_column(cur, length)
     for t in range(1, length):
         alive = cur >= 0
-        safe = cur.clamp(min=0)
+        safe = _safe(cur)
         deg = torch.where(alive, deg_all[safe], 0)
         u = torch.rand(cur.shape, generator=generator, device=device)
         pick = torch.minimum((u * deg.to(torch.float32)).to(torch.int64),
@@ -47,15 +131,306 @@ def uniform_walks(row_ptr, col_idx, degree, starts, *, length, generator):
     return out
 
 
-def simulate_walks(graph: DeviceGraph, num_walks: int, walk_length: int, *,
-                   generator, kind: str = "uniform"):
+def weighted_walks(row_ptr, col_idx, degree, accept, alias, starts, *,
+                   length, generator):
+    """First-order weighted walks: one alias draw a hop from the per-row
+    tables (`accept` f32 [E], `alias` i32 [E], aligned to the CSR)."""
+    device = starts.device
+    cur = starts.to(torch.int64)
+    col = _nonempty(col_idx, -1)
+    accept, alias = _nonempty(accept, 1.0), _nonempty(alias, 0)
+    deg_all = degree.to(torch.int64)
+    out = _first_column(cur, length)
+    for t in range(1, length):
+        safe = _safe(cur)
+        deg = torch.where(cur >= 0, deg_all[safe], 0)
+        rp = row_ptr[safe]
+        u1 = torch.rand(cur.shape, generator=generator, device=device)
+        u2 = torch.rand(cur.shape, generator=generator, device=device)
+        slot = alias_draw(accept, alias, rp, deg.clamp(min=1), u1, u2)
+        nxt = col[(rp + slot).clamp(max=col.shape[0] - 1)]
+        cur = torch.where(deg > 0, nxt.to(torch.int64), -1)
+        out[:, t] = cur.to(torch.int32)
+    return out
+
+
+def _gumbel(shape, generator, device):
+    """Gumbel(0, 1) noise, -log(-log(u)) with u in [1e-20, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_(min=1e-20)))
+
+
+def _gumbel_pick(w, generator):
+    """A column of each row of `w` (f32 [B, D]) drawn with probability
+    proportional to w (Gumbel-max); rows with no positive w give 0."""
+    score = torch.where(w > 0, torch.log(w.clamp(min=1e-30)), -math.inf)
+    score = score + _gumbel(w.shape, generator, w.device)
+    return score.argmax(dim=1, keepdim=True)
+
+
+def node2vec_walks(degree, nbr, nbr_w, starts, p, q, *, length,
+                   generator):
+    """Exact (p,q)-biased second-order walks (Grover & Leskovec 2016).
+
+    `nbr` i32 [V, Dmax] (pad -1) and `nbr_w` f32 [V, Dmax] (pad 0) are the
+    padded neighbor rows (`Graph.neighbor_matrix`). For a walker at `cur`
+    that came from `prev`, each neighbor x of cur weighs
+
+        w(cur, x) * {1/p if x == prev, 1 if x in N(prev), 1/q otherwise}
+
+    and one Gumbel-max draw over cur's row picks the next hop. The first
+    hop is a plain weighted draw. (The JAX signature's row_ptr and col_idx
+    are not taken: the padded rows hold all the sampler reads.)
+    """
+    inv_p, inv_q = 1.0 / float(p), 1.0 / float(q)
+    cur = starts.to(torch.int64)
+    deg_all = degree.to(torch.int64)
+    out = _first_column(cur, length)
+    prev = None
+    for t in range(1, length):
+        safe = _safe(cur)
+        cand = nbr[safe]  # [B, D]
+        w = nbr_w[safe]
+        if prev is not None:
+            is_prev = cand == prev[:, None]
+            in_prev = rows_contain(sorted_rows(nbr[_safe(prev)]), cand)
+            w = w * torch.where(is_prev, inv_p,
+                                torch.where(in_prev, 1.0, inv_q))
+        nxt = cand.gather(1, _gumbel_pick(w, generator))[:, 0]
+        deg = torch.where(cur >= 0, deg_all[safe], 0)
+        prev, cur = cur, torch.where(deg > 0, nxt.to(torch.int64), -1)
+        out[:, t] = cur.to(torch.int32)
+    return out
+
+
+def rejection_budget(p, q, *, envelope):
+    """(proposals a round, retry budget) of the rejection sampler, as the
+    JAX package sizes them from the analytic acceptance floor of the
+    active form: overflow <= ~2e-3 a hop, one round wide enough to cover
+    the budget where it can, at most 64 tries in all."""
+    inv_p, inv_q = 1.0 / float(p), 1.0 / float(q)
+    if envelope:
+        beta = max(1.0, inv_q)
+        floor = min(inv_p / max(inv_p, beta), 1.0 / beta, inv_q / beta)
+    else:
+        floor = min(inv_p, 1.0, inv_q) / max(inv_p, 1.0, inv_q)
+    floor = min(max(floor, 1e-6), 1.0 - 1e-9)
+    need = max(1, math.ceil(math.log(2e-3) / math.log(1.0 - floor)))
+    n_prop = int(min(max(need, 8), 32))
+    rounds = max(1, math.ceil(
+        math.log(2e-3) / (n_prop * math.log(1.0 - floor))))
+    return n_prop, int(min(rounds * n_prop, 64))
+
+
+def node2vec_walks_rejection(row_ptr, col_idx, degree, accept, alias,
+                             starts, p, q, *, length, max_degree, generator,
+                             edge_weight=None, wsum=None, envelope=None,
+                             nbr=None, uniform_rows=False):
+    """Rejection-sampling (p,q) walks (reference `node2vec_walk2`).
+
+    A proposal is a weighted first-order draw from N(cur) (the alias
+    tables). It is accepted with probability factor(y) / envelope(y),
+    factor in {1/p, 1, 1/q} by the class of y against prev. Each round
+    draws a batch of candidates a walker and takes the first accepted
+    one; after the last round a walker with none accepted keeps the last
+    proposal (the overflow bias the budget bounds).
+
+    ``envelope=True``: the prev-point mixture. Propose prev with the
+    excess mass a = max(1/p - beta, 0) * w(cur, prev), beta = max(1,
+    1/q), and everything else from the alias draw at envelope beta; the
+    per-class acceptance is then {prev: 1, shared: 1/beta, other:
+    (1/q)/beta}. ``envelope=False``: the upper-bound form, envelope
+    max(1/p, 1, 1/q). ``None`` takes the mixture exactly when `wsum` is
+    given (its mass needs the cur->prev weight and the row sums: pass
+    `edge_weight` f32 [E] and `wsum` f32 [V] for a weighted graph;
+    without them every weight counts 1 and wsum is the degree).
+
+    ``nbr`` (i32 [V, Dmax], pad -1): dense membership, a search in prev's
+    resident row gathered once a step; None: a binary search in the CSR a
+    candidate (`csr_contains`). ``uniform_rows`` (unweighted graphs, with
+    nbr): a proposal is a uniform slot of cur's resident row in place of
+    the alias draw.
+
+    The batch and the number of rounds are `rejection_budget`'s, a fixed
+    count; a walker already done draws on and is masked out.
+    """
+    if envelope is None:
+        envelope = wsum is not None
+    n_prop, max_tries = rejection_budget(p, q, envelope=envelope)
+    n_rounds = -(-max_tries // n_prop)
+    inv_p, inv_q = 1.0 / float(p), 1.0 / float(q)
+    ub = max(inv_p, 1.0, inv_q)
+    beta = max(1.0, inv_q)
+    a_coef = max(inv_p - beta, 0.0)
+    device = starts.device
+    col = _nonempty(col_idx, -1)
+    last = col.shape[0] - 1
+    accept, alias = _nonempty(accept, 1.0), _nonempty(alias, 0)
+    deg_all = degree.to(torch.int64)
+    if wsum is None:
+        wsum = degree.to(torch.float32)
+    if edge_weight is not None:
+        edge_weight = _nonempty(edge_weight, 0.0)
+
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    cur = starts.to(torch.int64)
+    out = _first_column(cur, length)
+    B = cur.shape[0]
+    if length > 1:
+        # first hop: a plain weighted draw
+        deg = deg_all[cur]
+        rp = row_ptr[cur]
+        slot = alias_draw(accept, alias, rp, deg.clamp(min=1), rand(B),
+                          rand(B))
+        nxt = col[(rp + slot).clamp(max=last)].to(torch.int64)
+        prev, cur = cur, torch.where(deg > 0, nxt, -1)
+        out[:, 1] = cur.to(torch.int32)
+    for t in range(2, length):
+        safe, psafe = _safe(cur), _safe(prev)
+        deg = torch.where(cur >= 0, deg_all[safe], 0)
+        offs = row_ptr[safe][:, None].expand(B, n_prop)
+        degb = deg.clamp(min=1)[:, None].expand(B, n_prop)
+        prevb = psafe[:, None].expand(B, n_prop)
+        if envelope:
+            # the prev point's mass: a = a_coef * w(cur -> prev), 0 where
+            # the edge is absent (directed graphs); one csr_find a walker
+            pfound, ppos = csr_find(row_ptr, col, degree, safe, psafe,
+                                    max_degree=max_degree)
+            pfound = pfound & (prev >= 0)
+            if edge_weight is None:
+                w_prev = pfound.to(torch.float32)
+            else:
+                w_prev = torch.where(
+                    pfound,
+                    edge_weight[ppos.clamp(max=edge_weight.shape[0] - 1)],
+                    0.0)
+            a = a_coef * w_prev
+            p_point = a / (a + beta * wsum[safe]).clamp(min=1e-30)
+        srt_prev = sorted_rows(nbr[psafe]) if nbr is not None else None
+        nbr_cur = nbr[safe] if uniform_rows and nbr is not None else None
+        done = torch.zeros(B, dtype=torch.bool, device=device)
+        y = torch.zeros(B, dtype=col.dtype, device=device)
+        for _ in range(n_rounds):
+            u1 = rand((B, n_prop))
+            if nbr_cur is not None:
+                slot = torch.minimum(
+                    (u1 * degb.to(torch.float32)).to(torch.int64), degb - 1)
+                cand = nbr_cur.gather(1, slot)
+            else:
+                slot = alias_draw(accept, alias, offs, degb, u1,
+                                  rand((B, n_prop)))
+                cand = col[(offs + slot).clamp(max=last)]
+            if envelope:
+                take_point = rand((B, n_prop)) < p_point[:, None]
+                cand = torch.where(take_point, prevb.to(cand.dtype), cand)
+            is_prev = cand == prev[:, None]
+            if srt_prev is not None:
+                in_prev = rows_contain(srt_prev, cand)
+            else:
+                in_prev = csr_contains(row_ptr, col, degree, prevb, cand,
+                                       max_degree=max_degree)
+            factor = torch.where(is_prev, inv_p,
+                                 torch.where(in_prev, 1.0, inv_q))
+            if envelope:
+                env = beta + torch.where(is_prev, a_coef, 0.0)
+            else:
+                env = ub
+            acc = rand((B, n_prop)) < factor / env
+            # the first accepted proposal; none accepted: the last one
+            any_acc = acc.any(dim=1)
+            first = acc.to(torch.uint8).argmax(dim=1)
+            pick = torch.where(any_acc, first, n_prop - 1)
+            y = torch.where(done, y, cand.gather(1, pick[:, None])[:, 0])
+            done = done | any_acc
+        prev, cur = cur, torch.where(deg > 0, y.to(torch.int64), -1)
+        out[:, t] = cur.to(torch.int32)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# the corpus
+# --------------------------------------------------------------------------- #
+
+
+def select_pq_kernel(num_nodes, max_degree) -> str:
+    """The (p,q) sampler for a graph: 'exact', 'rejection_dense' or
+    'rejection' (CSR membership).
+
+    The JAX package's rule, kept as it is so that both packages pick the
+    same sampler on the same graph: exact while the neighbor axis, padded
+    to 128 lanes, is at most 384 and the [V, Dpad] ids and weights (8
+    bytes a slot) fit the budget; else dense-membership rejection while
+    the ids alone (4 bytes a slot) fit; else CSR rejection. The 128-lane
+    padding, the 384 crossover and the 4 GiB budget are measurements and
+    rules of a TPU v5e (the JAX package's `pq_crossover_r05`), not of the
+    H100; the port's own crossover is not measured yet. (The JAX
+    signature's p and q do not enter its rule, and are not taken.)
+    """
+    dpad = ((max(max_degree, 1) + _LANE - 1) // _LANE) * _LANE
+    if dpad <= 384 and num_nodes * dpad * 8 <= _PQ_BUDGET_BYTES:
+        return "exact"
+    if num_nodes * dpad * 4 <= _PQ_BUDGET_BYTES:
+        return "rejection_dense"
+    return "rejection"
+
+
+def pq_sampler(num_nodes, max_degree, use_rejection_sampling=None):
+    """The (p,q) sampler of a graph under the reference's flag: by
+    `select_pq_kernel` for None; 'exact' for False; for True, rejection
+    with its membership mode chosen by the same memory budget."""
+    choice = select_pq_kernel(num_nodes, max_degree)
+    if use_rejection_sampling is None:
+        return choice
+    if not use_rejection_sampling:
+        return "exact"
+    # exact fits the budget at 8 bytes a slot, so the ids fit at 4
+    return "rejection_dense" if choice == "exact" else choice
+
+
+def simulate_walks(graph, num_walks: int, walk_length: int, *, generator,
+                   kind: str = "uniform", p: float = 1.0, q: float = 1.0,
+                   sampler=None):
     """The walk corpus [num_walks * V, walk_length] (int32): every vertex
-    starts `num_walks` walks (`arange(V)` tiled `num_walks` times)."""
-    if kind != "uniform":
-        raise NotImplementedError(
-            f"walk kind {kind!r} is not ported; only 'uniform' is")
-    device = graph.row_ptr.device
-    starts = torch.arange(graph.num_nodes, dtype=torch.int64,
+    starts `num_walks` walks (`arange(V)` tiled `num_walks` times).
+
+    `graph` is a host `Graph`, walked on the generator's device with its
+    views there (each built once). kind: 'uniform', 'weighted' (alias
+    tables) or 'node2vec' with `p`, `q` and a `sampler`: 'exact',
+    'rejection_dense', 'rejection' (CSR membership), or None for
+    `select_pq_kernel`'s choice (`pq_sampler` maps the reference's
+    `use_rejection_sampling` flag to one).
+    """
+    device = generator.device
+    dg = graph.to(device)
+    starts = torch.arange(dg.num_nodes, dtype=torch.int64,
                           device=device).repeat(num_walks)
-    return uniform_walks(graph.row_ptr, graph.col_idx, graph.degree, starts,
-                         length=walk_length, generator=generator)
+    if kind == "uniform":
+        return uniform_walks(dg.row_ptr, dg.col_idx, dg.degree, starts,
+                             length=walk_length, generator=generator)
+    if kind == "weighted":
+        accept, alias = graph.alias_tables(device)
+        return weighted_walks(dg.row_ptr, dg.col_idx, dg.degree, accept,
+                              alias, starts, length=walk_length,
+                              generator=generator)
+    if kind != "node2vec":
+        raise ValueError(f"unknown walk kind: {kind!r}")
+    if sampler is None:
+        sampler = select_pq_kernel(dg.num_nodes, dg.max_degree)
+    if sampler == "exact":
+        nbr, nbr_w = graph.neighbor_matrix(device)
+        return node2vec_walks(dg.degree, nbr, nbr_w, starts, p, q,
+                              length=walk_length, generator=generator)
+    if sampler not in ("rejection", "rejection_dense"):
+        raise ValueError(f"unknown (p,q) sampler: {sampler!r}")
+    accept, alias = graph.alias_tables(device)
+    # ids only: the weights would double the footprint the budget gates
+    nbr = graph.neighbor_ids(device) if sampler == "rejection_dense" else None
+    # an unweighted graph with resident rows draws slots, not alias pairs
+    return node2vec_walks_rejection(
+        dg.row_ptr, dg.col_idx, dg.degree, accept, alias, starts, p, q,
+        length=walk_length, max_degree=max(dg.max_degree, 1),
+        generator=generator, edge_weight=dg.edge_weight,
+        wsum=graph.weight_sums(device), nbr=nbr,
+        uniform_rows=nbr is not None and graph.unit_weights)

@@ -36,7 +36,7 @@ from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads,
     sgns_block_grads_plain,
 )
-from graphembedding_tpu_torch.ops.walk import uniform_walks
+from graphembedding_tpu_torch.ops.walk import simulate_walks, uniform_walks
 from graphembedding_tpu_torch.train import skipgram as sg
 
 
@@ -273,6 +273,43 @@ def test_walks_on_card(cuda):
                           generator=gen).cpu().numpy()
     freq = np.bincount(walks[:, 1], minlength=4) / walks.shape[0]
     np.testing.assert_allclose(freq[[0, 1, 3]], 1 / 3, atol=0.02)
+
+
+def test_views_shared_by_card_names(cuda):
+    """'cuda' and 'cuda:<current>' name one card and share its views."""
+    g = Graph(np.array([0, 1, 2]), np.array([1, 2, 0]))
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert g.to(cuda) is g.to(here)
+    assert g.neighbor_ids(cuda) is g.neighbor_ids(here)
+
+
+@pytest.mark.parametrize("kind,sampler", [
+    ("weighted", None), ("node2vec", "exact"),
+    ("node2vec", "rejection_dense"), ("node2vec", "rejection")])
+def test_weighted_and_pq_walks_on_card(cuda, kind, sampler):
+    """The third hop from 0 through 1 on a weighted triangle with a tail
+    follows its exact law (p = 0.25, q = 4; weighted: the edge weights),
+    and one seed gives the same walks twice."""
+    src, dst = np.array([0, 1, 2, 2]), np.array([1, 2, 0, 3])
+    w = np.array([3.0, 1.0, 2.0, 0.5], dtype=np.float32)
+    g = Graph(src, dst, w, directed=False)
+
+    def run():
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        return simulate_walks(g, 30000, 3, generator=gen, kind=kind, p=0.25,
+                              q=4.0, sampler=sampler)
+
+    walks = run()
+    assert torch.equal(walks, run())
+    walks = walks.cpu().numpy()
+    sel = walks[(walks[:, 0] == 0) & (walks[:, 1] == 1)]
+    # from 1, having come from 0: N(1) = {0 (w 3), 2 (w 1)}, and 2 is in
+    # N(0), so the (p,q) factors are 1/p for 0 and 1 for 2
+    target = np.array([3.0, 1.0]) if kind == "weighted" else \
+        np.array([3.0 / 0.25, 1.0])
+    freq = np.bincount(sel[:, 2], minlength=4)[[0, 2]] / len(sel)
+    assert len(sel) > 2000
+    np.testing.assert_allclose(freq, target / target.sum(), atol=0.03)
 
 
 def test_four_steps_match_plain(cuda):

@@ -29,6 +29,17 @@ from graphembedding_tpu_torch.train.skipgram import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two torch threads for this file's CPU training: with a thread per
+    core in each of several test processes at once, the hard-SBM gates
+    ran some 30x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def small_graph():
     return tds.synthetic_wiki(num_nodes=120, num_classes=3, avg_degree=8,
                               p_in=0.85, seed=3)

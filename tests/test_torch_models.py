@@ -6,14 +6,26 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from graphembedding_tpu.data import datasets as jds
 from graphembedding_tpu.eval.classify import Classifier as JaxClassifier
-from graphembedding_tpu_torch import DeepWalk
+from graphembedding_tpu_torch import DeepWalk, Node2Vec
 from graphembedding_tpu_torch.data import datasets as tds
 from graphembedding_tpu_torch.eval.classify import Classifier, f1_scores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two torch threads for this file's CPU training: with a thread per
+    core in each of several test processes at once, the hard-SBM gates
+    ran some 30x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("make", ["synthetic_wiki", "synthetic_wiki_hard"])
@@ -90,21 +102,28 @@ def test_unsupported_options_raise():
                {"checkpoint_dir": "ckpt"}, {"cap_mode": "sparse"}):
         with pytest.raises(NotImplementedError):
             m.train(embed_size=8, iter=1, **kw)
+    for cls, kw in ((DeepWalk, {"mesh": object()}),
+                    (DeepWalk, {"walk_exchange": "a2a"}),
+                    (Node2Vec, {"mesh": object()})):
+        with pytest.raises(NotImplementedError):
+            cls(ds.graph, **kw)
+    # the JAX package's default is accepted
+    DeepWalk(ds.graph, walk_length=5, num_walks=2, walk_exchange=None,
+             device="cpu")
+    n2v = Node2Vec(ds.graph, walk_length=5, num_walks=2, device="cpu")
     with pytest.raises(NotImplementedError):
-        DeepWalk(ds.graph, mesh=object())
+        n2v.train(embed_size=8, iter=1, hs=1)
 
 
-@pytest.mark.parametrize("model", ["DeepWalk", "LINE"])
+@pytest.mark.parametrize("model", ["DeepWalk", "Node2Vec", "LINE"])
 def test_models_default_to_the_card(model):
     """Without device= a model runs on the CUDA card; where there is none
     it raises rather than run on the CPU. Validation errors come first."""
-    import torch
-
     import graphembedding_tpu_torch as pkg
 
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
     cls = getattr(pkg, model)
-    bad = {"mesh": object()} if model == "DeepWalk" else {"order": "third"}
+    bad = {"order": "third"} if model == "LINE" else {"mesh": object()}
     with pytest.raises((NotImplementedError, ValueError)):
         cls(ds.graph, **bad)
     if torch.cuda.is_available():
@@ -120,6 +139,8 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.train, graphembedding_tpu_torch.data, "
             "graphembedding_tpu_torch.interop, "
             "graphembedding_tpu_torch.models.line, "
+            "graphembedding_tpu_torch.models.node2vec, "
+            "graphembedding_tpu_torch.ops.walk, "
             "graphembedding_tpu_torch.benchmarks.dma_gather, "
             "graphembedding_tpu_torch.benchmarks.scatter_bench, "
             "graphembedding_tpu_torch.benchmarks.train_profile; "
@@ -130,8 +151,6 @@ def test_port_imports_no_jax():
 
 
 def test_chip_smoke_fails_without_a_card():
-    import torch
-
     if torch.cuda.is_available():
         pytest.skip("this host has a card; chip_smoke.py runs for real")
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,

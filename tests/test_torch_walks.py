@@ -72,7 +72,7 @@ def test_uniform_transition_distribution():
 def test_simulate_walks_starts_every_node():
     g = triangle_with_tail()
     gen = torch.Generator().manual_seed(3)
-    walks = simulate_walks(g.to("cpu"), 3, 5, generator=gen).numpy()
+    walks = simulate_walks(g, 3, 5, generator=gen).numpy()
     assert walks.shape == (12, 5)
     np.testing.assert_array_equal(walks[:, 0], np.tile(np.arange(4), 3))
     # every hop follows an edge
