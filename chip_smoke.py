@@ -49,10 +49,37 @@ Phases, one or more lines each:
      and warm seconds, walked edges/s, the device's busy time in one warm
      run by torch.profiler), then exact against dense rejection on a
      512-out-regular graph of 20,000 nodes (p = 0.25, q = 4, one walk of
-     10 a node).
+     10 a node);
+ 13. four hierarchical-softmax steps through the kernels (K3, and K4 by
+     `ops.rows.scatter_add_table`) against four through the plain
+     versions, from the same tables and draws, at the DeepWalk hs=1 Wiki
+     shapes (Bw = 504: G = 42 groups of PL = 120, Huffman depth T, the
+     tree table [V - 1, 128]); then the step's tree scatter [G*PL*T, 129]
+     by K4, K2 and a bare `index_add_` in turns (bit-equal to each other's
+     and the CPU plain version's sums), and its tree gather by K3 and
+     `index_select` in turns;
+ 14. DeepWalk hs=1 path: load_dataset('wiki') -> DeepWalk(walk_length=10,
+     num_walks=80, device='cuda') -> train(embed_size=128, window_size=5,
+     iter=3, hs=1) -> get_embeddings -> Classifier; checks that K3 and K4
+     launched 2,304 times each (2 a step x 1,152) and K1, K2 never, and
+     micro-F1 >= 0.93; prints train s, trained pairs/s, and the device
+     time and busy share of one warm train (torch.profiler);
+ 15. Struc2Vec path: load_dataset('flight-brazil') -> Struc2Vec(
+     walk_length=10, num_walks=80, workers=4, temp_path=<a temporary
+     directory>, device='cuda') -> train(embed_size=128, window_size=5,
+     iter=5) (hs='auto' -> hs=1) -> get_embeddings -> Classifier; checks
+     the HS route, K3 and K4 launched 640 times each, every emitted hop an
+     edge of a layer of the context graph or a stay at a vertex with no
+     edge in some layer, micro-F1 >= 0.80, and that a second model with
+     reuse=True loads the cache and walks the same corpus from the same
+     seed; prints context-graph, layer-CSR, cold and warm walk and train
+     seconds, K, E_max, the walk's device events, and the device time and
+     busy share of one warm train (torch.profiler).
 
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
+Phase 2 also builds Struc2Vec's C++ library with g++ (a missing compiler
+fails the run there).
 
 Bounds: `bound_ms` is the least time the card could take for a kernel's
 work on this run's inputs: the larger of its bytes (each input read once,
@@ -78,6 +105,15 @@ MIN_MICRO_F1 = 0.93  # expected of DeepWalk on the Wiki-scale graph
 # over seeds 0-2, and the port's random streams differ from its
 LINE_MIN_MICRO_F1 = 0.70
 N2V_MIN_MICRO_F1 = 0.90  # Node2Vec (p = 0.25, q = 4) on the same graph
+# DeepWalk hs=1 on the same graph: the JAX package gives 0.9667 on the CPU
+# (seed 0); the gate is DeepWalk's SGNS gate
+HS_MIN_MICRO_F1 = 0.93
+# Struc2Vec on flight-brazil: the JAX package gives 0.8889 on the CPU (seed
+# 0); its test split holds 27 nodes, so one node is 0.037
+S2V_MIN_MICRO_F1 = 0.80
+# four HS steps, kernels against plain versions: the plain scatter on the
+# card sums with atomics, in another order (tests/test_torch_card.py)
+HS_RTOL, HS_ATOL = 1e-5, 1e-6
 DEVICE = "cuda"
 
 
@@ -202,6 +238,14 @@ def main():
     for line in kb.build_log["ptxas"].splitlines():
         if "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    from graphembedding_tpu_torch import native
+    t0 = time.perf_counter()
+    try:
+        native.library()
+    except (RuntimeError, OSError) as e:
+        fail(f"Struc2Vec's native library did not build: {e}")
+    print(f"build: native library {time.perf_counter() - t0:.2f} s (g++) "
+          f"-> {native.library_path()}", flush=True)
 
     # 3. kernels against plain versions at the slice's shapes
     ds = load_dataset("wiki")
@@ -394,6 +438,8 @@ def main():
 
     line_phases(dev, card, records, record)
     node2vec_phases(dev, card)
+    hs_phases(dev, card, records, record)
+    struc2vec_phase(dev, card)
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
@@ -719,6 +765,338 @@ def node2vec_phases(dev, card):
               f"nodes [{walks.shape[0]}, {walks.shape[1]}]: cold "
               f"{cold:.4f} s, warm {warm:.4f} s, {edges / warm:.4e} walked "
               f"edges/s; {busy_text(run)} [{card}]", flush=True)
+
+
+def hs_phases(dev, card, records, record):
+    """Phases 13-14: four HS steps against plain ones with the tree scatter
+    and gather timed, then the DeepWalk hs=1 path; appends the HS-shape K3
+    and K4 records with the path's launches."""
+    import torch
+
+    from graphembedding_tpu_torch import DeepWalk
+    from graphembedding_tpu_torch.benchmarks.common import (
+        median_ms, turns_ms)
+    from graphembedding_tpu_torch.benchmarks.train_profile import (
+        breakdown, device_events as profile_events)
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.ops.rows import (
+        gather_rows, gather_rows_plain, scatter_add_rows,
+        scatter_add_rows_plain, scatter_add_small)
+    from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
+    from graphembedding_tpu_torch.ops.walk import simulate_walks
+    from graphembedding_tpu_torch.train import hsoftmax as hs
+    from graphembedding_tpu_torch.train import skipgram as sg
+
+    # 13. four HS steps at the DeepWalk hs=1 Wiki shapes
+    ds = load_dataset("wiki")
+    V, D, L, W = ds.graph.num_nodes, 128, 10, 5
+    gen = torch.Generator(device=dev).manual_seed(13)
+    walks = simulate_walks(ds.graph, 80, L, generator=gen)
+    NW = walks.shape[0]
+    bw = sg.fit_block_walks(NW, L, 504)
+    geo = sg.block_geometry(NW, L, bw, 1)
+    points, codes, T = hs.build_huffman(sg.corpus_counts(walks, V))
+    points = torch.as_tensor(points, device=dev)
+    codes = torch.as_tensor(codes, device=dev)
+    w_in = (torch.rand((V, D), generator=gen, device=dev) - 0.5) / D
+    w_tree = torch.randn((V - 1, D), generator=gen, device=dev) * 0.05
+    eff = W - (torch.rand((4, geo.G, geo.PL), generator=gen, device=dev)
+               * W).to(torch.int32).clamp(0, W - 1)
+    print(f"HS shapes: V={V} NW={NW} Bw={geo.Bw} G={geo.G} PL={geo.PL} "
+          f"T={T} D={D}: tokens {geo.G * geo.PL}, tree rows "
+          f"{geo.G * geo.PL * T} a step", flush=True)
+    for k in (gather_rows, scatter_add_small, scatter_add_rows):
+        k.launches = 0
+    outs = [hs.hs_block_chunk(w_in.clone(), w_tree.clone(), walks, points,
+                              codes, eff, 0.025, 1e-4, 0, 1152.0,
+                              block_walks=bw, window=W, ops=ops)
+            for ops in (hs.KERNELS, hs.PLAIN)]
+    torch.cuda.synchronize()
+    print(f"  launches in the four kernel steps: K3 {gather_rows.launches}, "
+          f"K4 {scatter_add_small.launches}, K2 {scatter_add_rows.launches}",
+          flush=True)
+    if (gather_rows.launches, scatter_add_small.launches,
+            scatter_add_rows.launches) != (8, 8, 0):
+        fail("four HS steps: K3 and K4 should launch 8 times each, K2 never")
+    errs = [max_err(a, b, HS_RTOL, HS_ATOL, f"four HS steps: {n}")
+            for a, b, n in zip(outs[0], outs[1],
+                               ("w_in", "w_tree", "loss"))]
+    if not torch.equal(outs[0][3], outs[1][3]):
+        fail("four HS steps: pair counts differ")
+    print(f"HS step parity: 4 steps, max abs err {max(errs):.3e} (rtol "
+          f"{HS_RTOL}, atol {HS_ATOL}); w_tree moved by "
+          f"{float((outs[0][1] - w_tree).abs().max()):.3e}", flush=True)
+
+    # the first step's tree gather and scatter, as the step makes them
+    seen = {}
+
+    def keep(name, fn):
+        def wrapped(table, ids, *rest):
+            seen.setdefault(name, []).append((table.shape, ids.clone(),
+                                              *(r.clone() for r in rest)))
+            return fn(table, ids, *rest)
+        return wrapped
+
+    window_ok, dm = sg.window_geometry(L, geo.PL, W, dev)
+    hs.hs_step(w_in.clone(), w_tree.clone(),
+               walks[:geo.Bw].reshape(geo.G, geo.PL), eff[0], points, codes,
+               0.025, window_ok=window_ok, dm=dm, update_cap=8.0,
+               ops=hs.PLAIN._replace(
+                   gather=keep("gather", gather_rows_plain),
+                   scatter_add=keep("scatter", scatter_add_rows_plain)))
+    _, g_ids = seen["gather"][1]
+    (n_inner, C), s_ids, s_grads = seen["scatter"][1]
+    kept = s_ids[s_ids >= 0]
+    runs = torch.bincount(kept.long(), minlength=n_inner)
+    print(f"  tree scatter [{s_ids.numel()}, {C}] into [{n_inner}, {C}]: "
+          f"{kept.numel()} kept ids, {int((runs > 0).sum())} rows, the "
+          f"root's run {int(runs.max())}", flush=True)
+    buf = torch.zeros((n_inner, C), device=dev)
+    k4 = scatter_add_small(buf.clone(), s_ids, s_grads)
+    k2 = scatter_add_rows(buf.clone(), s_ids, s_grads)
+    again = scatter_add_small(buf.clone(), s_ids, s_grads)
+    want = scatter_add_rows_plain(buf.cpu(), s_ids.cpu(), s_grads.cpu())
+    torch.cuda.synchronize()
+    if not (torch.equal(k4.cpu(), want) and torch.equal(k4, k2)
+            and torch.equal(k4, again)):
+        fail("HS tree scatter: K4 not bit-equal to the CPU plain version "
+             "and to K2, or not run-to-run identical")
+    ids_in, grads_in = kept.long(), s_grads[s_ids >= 0].contiguous()
+    k4_ms, lib_ms = turns_ms(lambda: scatter_add_small(buf, s_ids, s_grads),
+                             lambda: buf.index_add_(0, ids_in, grads_in))
+    k2_ms, lib2_ms = turns_ms(lambda: scatter_add_rows(buf, s_ids, s_grads),
+                              lambda: buf.index_add_(0, ids_in, grads_in))
+    k4_again, k2_again = turns_ms(
+        lambda: scatter_add_small(buf, s_ids, s_grads),
+        lambda: scatter_add_rows(buf, s_ids, s_grads))
+    plain_ms = median_ms(lambda: scatter_add_rows_plain(buf, s_ids,
+                                                        s_grads))
+    s_bound = rows_bound_ms(s_ids, n_inner, C, None)
+    print(f"  HS tree scatter in turns: K4 {k4_ms:.4f} ms vs index_add_ "
+          f"{lib_ms:.4f}; K2 {k2_ms:.4f} vs index_add_ {lib2_ms:.4f}; K4 "
+          f"{k4_again:.4f} vs K2 {k2_again:.4f}; plain {plain_ms:.4f} ms; "
+          f"bound {s_bound:.4f} ms [{card}]", flush=True)
+    if k2_again < k4_again:
+        print("  note: K2 beats K4 at the HS tree scatter", flush=True)
+    record("scatter_add_small[hs tree]",
+           "graphembedding_tpu_torch/csrc/scatter_small.cu",
+           "graphembedding_tpu/ops/pallas_scatter.py:315", 0.0, k4_ms,
+           plain_ms, s_bound, lib_ms)
+
+    w_tree_c = w_tree.contiguous()
+    got = gather_rows(w_tree_c, g_ids)
+    torch.cuda.synchronize()
+    if not torch.equal(got, gather_rows_plain(w_tree_c, g_ids)):
+        fail("HS tree gather: K3 differs from table[ids]")
+    g_long = g_ids.long()
+    k3_ms, sel_ms = turns_ms(lambda: gather_rows(w_tree_c, g_ids),
+                             lambda: torch.index_select(w_tree_c, 0, g_long))
+    g_bound = rows_bound_ms(g_ids, n_inner, D, g_ids.numel())
+    record("gather_rows[hs tree]", "graphembedding_tpu_torch/csrc/rows.cu",
+           "graphembedding_tpu/ops/pallas_scatter.py:261", 0.0, k3_ms,
+           median_ms(lambda: gather_rows_plain(w_tree_c, g_ids)), g_bound,
+           sel_ms)
+    print(f"  HS tree gather [{g_ids.numel()}, {D}] of [{n_inner}, {D}]: "
+          f"{int(torch.unique(g_ids).numel())} distinct rows", flush=True)
+
+    # 14. the DeepWalk hs=1 path, counting launches
+    kernels = (gather_rows, scatter_add_small, scatter_add_rows,
+               sgns_block_grads)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = load_dataset("wiki")
+    model = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model.train(embed_size=128, window_size=5, iter=3, hs=1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    emb = model.get_embeddings()
+    res = Classifier(emb).split_train_evaluate(ds.X, ds.Y, 0.8, seed=0)
+    t3 = time.perf_counter()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"DeepWalk hs=1 path launches: {launches}", flush=True)
+    steps = model.losses.shape[0]
+    want = {"gather_rows": 2 * steps, "scatter_add_small": 2 * steps,
+            "scatter_add_rows": 0, "sgns_block_grads": 0}
+    if steps != 1152 or launches != want:
+        fail(f"DeepWalk hs=1: {steps} steps and launches {launches}, want "
+             f"1152 steps and {want}")
+    for r in records:
+        if r["name"].endswith("[hs tree]"):
+            r["launches"] = launches[r["name"].split("[")[0]]
+    if tuple(model.w_out.shape) != (V - 1, 128):
+        fail(f"DeepWalk hs=1: tree table {tuple(model.w_out.shape)}")
+    table = model.embedding_table
+    if tuple(table.shape) != (V, 128) or not torch.isfinite(table).all():
+        fail(f"DeepWalk hs=1 embeddings: shape {tuple(table.shape)} or "
+             f"non-finite")
+    if len(emb) != V or not torch.isfinite(model.losses).all():
+        fail("DeepWalk hs=1: embeddings missing or losses non-finite")
+    train_s = t2 - t1
+    print(f"DeepWalk hs=1 path: constructor {t1 - t0:.3f} s, train "
+          f"{train_s:.4f} s ({steps} steps), classify {t3 - t2:.3f} s; "
+          f"final loss {float(model.losses[-1]):.4f}", flush=True)
+    print(f"DeepWalk hs=1 trained pairs/s: "
+          f"{model.trained_pairs / train_s:.4e} ({model.trained_pairs:.0f} "
+          f"pairs) [{card}]")
+
+    def train():
+        model.train(embed_size=128, window_size=5, iter=3, hs=1)
+
+    warm_s = min(timed_walks(train)[1] for _ in range(2))
+    prof = breakdown(profile_events(train), 6)
+    print(f"DeepWalk hs=1 warm train {warm_s:.4f} s "
+          f"({model.trained_pairs / warm_s:.4e} pairs/s); one warm train "
+          f"under torch.profiler: device {prof['device_ms']:.2f} ms, busy "
+          f"{prof['busy_ms']:.2f} ms in {prof['device_events']} device "
+          f"events, busy share of the warm train "
+          f"{prof['busy_ms'] / 1e3 / warm_s:.4f} [{card}]", flush=True)
+    for k in prof["kernels"]:
+        print(f"  {k['name'][:70]}: {k['calls']} calls, {k['ms']:.2f} ms "
+              f"({k['share']:.3f})")
+    print(f"DeepWalk hs=1 micro-F1: {res['micro']:.4f}, macro-F1: "
+          f"{res['macro']:.4f} [{card}]", flush=True)
+    if not res["micro"] >= HS_MIN_MICRO_F1:
+        fail(f"DeepWalk hs=1 micro-F1 {res['micro']:.4f} < "
+             f"{HS_MIN_MICRO_F1}")
+
+
+def struc2vec_phase(dev, card):
+    """Phase 15: Struc2Vec on flight-brazil through the model's entry
+    points, its host stages and walk timed on their own."""
+    import tempfile
+
+    import torch
+
+    from graphembedding_tpu_torch import Struc2Vec
+    from graphembedding_tpu_torch.benchmarks.train_profile import (
+        breakdown, device_events as profile_events)
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.models import struc2vec as s2v
+    from graphembedding_tpu_torch.ops.rows import (
+        gather_rows, scatter_add_rows, scatter_add_small)
+    from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
+
+    # the stages on their own: the context graph and the layer CSRs on the
+    # host, then the walk on the card (its first run cold)
+    ds = load_dataset("flight-brazil")
+    V = ds.graph.num_nodes
+    t0 = time.perf_counter()
+    edges, K = s2v.build_context_graph(ds.graph, workers=4)
+    t1 = time.perf_counter()
+    layers = s2v.build_layer_csr(edges, V)
+    t2 = time.perf_counter()
+    e_max = layers["col_idx"].shape[1]
+    print(f"Struc2Vec context graph of {ds.name} (V={V}, "
+          f"{ds.graph.num_edges} directed edges): {t1 - t0:.4f} s, K={K} "
+          f"layers of {[len(e[0]) for e in edges]} undirected edges; layer "
+          f"CSR {t2 - t1:.4f} s, E_max={e_max} (host)", flush=True)
+    ly = s2v.layers_to(layers, dev)
+    starts = torch.arange(V, dtype=torch.int32, device=dev).repeat(80)
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return s2v.multilayer_walks(ly["row_ptr"], ly["col_idx"],
+                                    ly["accept"], ly["alias"], ly["gamma"],
+                                    starts, gen, 0.3, length=10)
+    _, cold = timed_walks(run)
+    warm = min(timed_walks(run)[1] for _ in range(2))
+
+    # the main path, counting launches
+    kernels = (gather_rows, scatter_add_small, scatter_add_rows,
+               sgns_block_grads)
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = load_dataset("flight-brazil")
+        model = Struc2Vec(ds.graph, walk_length=10, num_walks=80, workers=4,
+                          temp_path=tmp, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.train(embed_size=128, window_size=5, iter=5)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        emb = model.get_embeddings()
+        res = Classifier(emb).split_train_evaluate(ds.X, ds.Y, 0.8, seed=0)
+        t3 = time.perf_counter()
+        launches = {k.__name__: k.launches for k in kernels}
+        again = Struc2Vec(ds.graph, walk_length=10, num_walks=80, workers=4,
+                          temp_path=tmp, reuse=True, device=dev)
+        if not again.cache_hit or model.cache_hit:
+            fail("Struc2Vec: the second model did not load the cache")
+        if not torch.equal(again.walks, model.walks):
+            fail("Struc2Vec: the cached context graph walks another corpus "
+                 "from the same seed")
+    print(f"Struc2Vec path launches: {launches}", flush=True)
+    steps = model.losses.shape[0]
+    want = {"gather_rows": 2 * steps, "scatter_add_small": 2 * steps,
+            "scatter_add_rows": 0, "sgns_block_grads": 0}
+    if steps != 320 or launches != want:
+        fail(f"Struc2Vec: {steps} steps and launches {launches}, want 320 "
+             f"HS steps and {want}")
+    if tuple(model.w_out.shape) != (V - 1, 128):
+        fail(f"Struc2Vec: hs='auto' did not train HS (w_out "
+             f"{tuple(model.w_out.shape)})")
+    table = model.embedding_table
+    if tuple(table.shape) != (V, 128) or not torch.isfinite(table).all():
+        fail(f"Struc2Vec embeddings: shape {tuple(table.shape)} or "
+             f"non-finite")
+    if len(emb) != V or not torch.isfinite(model.losses).all():
+        fail("Struc2Vec: embeddings missing or losses non-finite")
+
+    # every hop an edge of a layer, or a stay where a layer has no edge
+    walks = model.walks.cpu().numpy().astype(np.int64)
+    if walks.shape != (80 * V, 10):
+        fail(f"Struc2Vec corpus shape {walks.shape}")
+    rp = layers["row_ptr"].astype(np.int64)
+    deg = np.diff(rp, axis=1)
+    keys = np.concatenate([np.repeat(np.arange(V), deg[k]) * V
+                           + layers["col_idx"][k, :rp[k, -1]]
+                           for k in range(K)])
+    u, v = walks[:, :-1].ravel(), walks[:, 1:].ravel()
+    edge = np.isin(u * V + v, keys)
+    stay = (u == v) & (deg[:, u] == 0).any(0)
+    if not (edge | stay).all():
+        fail(f"Struc2Vec: {int((~(edge | stay)).sum())} hops follow no "
+             f"layer's edge")
+    events = device_events(lambda: model.simulate_walks())
+    busy = ("not measured" if events is None else
+            f"{len(events)} device events, busy "
+            f"{sum(us for _, us in events) / 1e3:.4f} ms")
+    print(f"Struc2Vec walks [{walks.shape[0]}, 10]: every hop a layer edge "
+          f"({int(stay.sum())} stays); cold {cold:.4f} s, warm {warm:.4f} "
+          f"s; one warm walk: {busy} [{card}]", flush=True)
+    print(f"Struc2Vec path: constructor (context graph, layer CSR, walks) "
+          f"{t1 - t0:.4f} s, train {t2 - t1:.4f} s ({steps} HS steps, "
+          f"{model.trained_pairs / (t2 - t1):.4e} trained pairs/s), "
+          f"classify {t3 - t2:.3f} s; final loss "
+          f"{float(model.losses[-1]):.4f}; cache reused, same corpus "
+          f"[{card}]", flush=True)
+    print(f"Struc2Vec micro-F1: {res['micro']:.4f}, macro-F1: "
+          f"{res['macro']:.4f} [{card}]", flush=True)
+
+    def train():
+        model.train(embed_size=128, window_size=5, iter=5)
+
+    warm_s = min(timed_walks(train)[1] for _ in range(2))
+    prof = breakdown(profile_events(train), 4)
+    print(f"Struc2Vec warm train {warm_s:.4f} s; one warm train under "
+          f"torch.profiler: device {prof['device_ms']:.2f} ms, busy "
+          f"{prof['busy_ms']:.2f} ms in {prof['device_events']} device "
+          f"events, busy share of the warm train "
+          f"{prof['busy_ms'] / 1e3 / warm_s:.4f} [{card}]", flush=True)
+    for k in prof["kernels"]:
+        print(f"  {k['name'][:70]}: {k['calls']} calls, {k['ms']:.2f} ms "
+              f"({k['share']:.3f})")
+    if not res["micro"] >= S2V_MIN_MICRO_F1:
+        fail(f"Struc2Vec micro-F1 {res['micro']:.4f} < {S2V_MIN_MICRO_F1}")
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ shapes (C = 256 columns, N = 45,696 rows a call):
 - `--mode matmul`: K4 `scatter_add_small` (a block per tile of table
   rows) against the plain `index_add_` and against K2, and K3
   `gather_rows` against the plain `index_select`, at V = 2405 and 10,312.
-  The K4-to-K2 times are what `models/line.py::SMALL_V_ROWS` rests on.
+  The K4-to-K2 times are what `ops/rows.py::SMALL_V_ROWS` rests on.
 
 Each timed call runs `window` = 16 operations on new ids (drawn before the
 call); the best of `reps` = 4 calls, after one untimed call, gives

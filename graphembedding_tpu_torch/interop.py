@@ -2,7 +2,8 @@
 
 The JAX package keeps `w_in` and `w_out` as two [V, D] arrays at its API;
 the port's walk models train one fused [V, 2D] table. LINE keeps the same
-three [V, D] tables in both packages. The functions take and give
+three [V, D] tables in both packages, and the hierarchical-softmax trainer
+the same w_in [V, D] and w_tree [max(V - 1, 1), D]. The functions take and give
 numpy-convertible arrays, so the port never imports jax: `np.asarray`
 reads a JAX array without it.
 """
@@ -33,3 +34,11 @@ def line_tables_from_jax(first_emb, second_emb, context_emb):
     (move them to its device first)."""
     return tuple(torch.from_numpy(np.array(t, dtype=np.float32))
                  for t in (first_emb, second_emb, context_emb))
+
+
+def hs_tables_from_jax(w_in, w_tree):
+    """The JAX package's hierarchical-softmax tables w_in [V, D] and w_tree
+    [max(V - 1, 1), D] -> two float32 CPU tensors (move them to the
+    port's device first)."""
+    return tuple(torch.from_numpy(np.array(t, dtype=np.float32))
+                 for t in (w_in, w_tree))

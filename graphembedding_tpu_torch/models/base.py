@@ -1,9 +1,10 @@
 """Shared machinery of the walk + skip-gram models.
 
-Counterpart of `graphembedding_tpu/models/base.py` (the walk-block SGNS
-trainer only). Models accept a networkx graph or a
-`graphembedding_tpu_torch.Graph`, and run on the `device` they are given:
-the CUDA card by default, the CPU only when the caller asks for it.
+Counterpart of `graphembedding_tpu/models/base.py`: the walk-block SGNS
+trainer, or the hierarchical-softmax trainer with `hs=1`. Models accept a
+networkx graph or a `graphembedding_tpu_torch.Graph`, and run on the
+`device` they are given: the CUDA card by default, the CPU only when the
+caller asks for it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict, Optional
 import torch
 
 from graphembedding_tpu_torch.graph import Graph
+from graphembedding_tpu_torch.train.hsoftmax import HSTrainer
 from graphembedding_tpu_torch.train.skipgram import (
     SkipGramConfig,
     SkipGramTrainer,
@@ -42,7 +44,8 @@ def model_device(device) -> torch.device:
 
 
 class WalkEmbeddingModel:
-    """Base of DeepWalk: walks -> SGNS -> embedding table."""
+    """Base of DeepWalk, Node2Vec and Struc2Vec: walks -> SGNS or
+    hierarchical softmax -> embedding table."""
 
     def __init__(self, graph, walk_length: int, num_walks: int,
                  seed: int = 0, device="cuda"):
@@ -64,8 +67,8 @@ class WalkEmbeddingModel:
                       hs=0, trainer="block", checkpoint_dir=None,
                       checkpoint_every=0, metrics=None, **kwargs):
         del workers, checkpoint_every
-        unsupported = {"hs": hs, "mesh": mesh,
-                       "checkpoint_dir": checkpoint_dir, "metrics": metrics}
+        unsupported = {"mesh": mesh, "checkpoint_dir": checkpoint_dir,
+                       "metrics": metrics}
         for name, value in unsupported.items():
             if value:
                 raise NotImplementedError(
@@ -77,6 +80,19 @@ class WalkEmbeddingModel:
             if name in kwargs:
                 raise NotImplementedError(
                     f"{name}= is not ported to graphembedding_tpu_torch")
+        if hs:
+            # as in the JAX package: window, epochs and seed kwargs win
+            # over the explicit arguments, and seed + 1 seeds the fit
+            seed = kwargs.get("seed", self.seed)
+            hst = HSTrainer(embed_size=embed_size,
+                            window=kwargs.get("window", window_size),
+                            epochs=kwargs.get("epochs", iter), alpha=alpha,
+                            min_alpha=min_alpha, sample=sample, seed=seed)
+            self.w_in, self.w_out, self.losses = hst.fit(
+                self.walks, self.graph.num_nodes, seed=seed + 1)
+            self.trained_pairs = hst.trained_pairs_
+            self._embeddings = None
+            return self
         # kwargs that name config fields win over the explicit arguments,
         # as in the JAX package; other kwargs are accepted and ignored
         # (gensim keyword parity)

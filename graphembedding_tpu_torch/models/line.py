@@ -4,10 +4,11 @@ Counterpart of `graphembedding_tpu/models/line.py` (the sampled trainer).
 Each step samples B edges by weight (an alias table over the edges) and
 negatives from a degree^0.75 table, gathers the rows it scores (K3), takes
 one positive pair and its negatives per edge, and scatter-adds the
-updates, one call per table (K4 while the table has at most SMALL_V_ROWS
-rows, K2 above). All gathers of a step come before its scatters, so one call on
-the concatenated ids equals the JAX step's sequential `.at[].add` calls up
-to the order of the sums within one XLA scatter.
+updates, one call per table (`ops.rows.scatter_add_table`: K4 while the
+table has at most SMALL_V_ROWS rows, K2 above). All gathers of a step come
+before its scatters, so one call on the concatenated ids equals the JAX
+step's sequential `.at[].add` calls up to the order of the sums within one
+XLA scatter.
 
 Orders: 'first' trains `first_emb` with symmetric dots (no context table);
 'second' trains `second_emb` against `context_emb`; 'all' trains both and
@@ -26,7 +27,7 @@ NotImplementedError.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -34,45 +35,16 @@ import torch.nn.functional as F
 
 from graphembedding_tpu_torch.models.base import as_graph, model_device
 from graphembedding_tpu_torch.ops.alias import build_alias_table
-from graphembedding_tpu_torch.ops.rows import (
-    gather_rows,
-    gather_rows_plain,
-    scatter_add_rows,
-    scatter_add_rows_plain,
-    scatter_add_small,
-)
+from graphembedding_tpu_torch.ops.rows import ROW_KERNELS, ROW_PLAIN
 from graphembedding_tpu_torch.train.skipgram import inverse_cdf_table
 
-# Most table rows whose scatters go to K4. K4 reads the whole id list once
-# per tile of 16 rows, so its cost grows with V while K2's does not. On an
-# NVIDIA H100 (700 W) `benchmarks/scatter_bench.py --mode matmul --c 128
-# --rows 6144` (LINE's ctx call) gave K4 4.258 against K2 4.819 ns/row at
-# V = 16,384 and 5.871 against 4.863 at V = 24,576 (PERF.md). At C = 256,
-# 45,696 rows a call K2 is the faster from V = 2,405 on; LINE never
-# scatters that many rows.
-SMALL_V_ROWS = 16_384
 # steps a chunk of draws covers; a run is whole chunks, as in the JAX package
 CHUNK_STEPS = 512
 
 
-def scatter_add(table, ids, grads):
-    """table[ids] += grads in place: K4 up to SMALL_V_ROWS rows, K2
-    above."""
-    if table.shape[0] <= SMALL_V_ROWS:
-        return scatter_add_small(table, ids, grads)
-    return scatter_add_rows(table, ids, grads)
-
-
-class LineOps(NamedTuple):
-    """The row kernels a step runs: gather, scatter-add."""
-
-    gather: object
-    scatter_add: object
-
-
-KERNELS = LineOps(gather_rows, scatter_add)
-# the plain PyTorch versions, which the kernels are held against
-PLAIN = LineOps(gather_rows_plain, scatter_add_rows_plain)
+# the row kernels a step runs (gather, scatter-add), and their plain
+# versions, which the kernels are held against
+KERNELS, PLAIN = ROW_KERNELS, ROW_PLAIN
 
 
 def _neg_grouping(batch_size, negative, k_shared):

@@ -31,6 +31,7 @@ tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -132,8 +133,9 @@ def scatter_add_small(table, ids, grads):
     small table: table[ids] += grads in place, ids outside [0, V) dropped,
     each row summed in the order of ids; returns table.
 
-    Its cost grows with N * V (every block reads all ids), so callers use
-    it only up to a number of table rows (`models/line.py::SMALL_V_ROWS`).
+    Its cost grows with N * V (every block reads all ids), so callers go
+    through `scatter_add_table`, which takes it only up to SMALL_V_ROWS
+    table rows.
     """
     on_cuda = _check_rows(table, ids, "scatter_add_small")
     _check_grads(table, ids, grads, "scatter_add_small")
@@ -148,6 +150,40 @@ def scatter_add_small(table, ids, grads):
 
 
 scatter_add_small.launches = 0
+
+# Most table rows whose scatters go to K4. K4 reads the whole id list once
+# per tile of 16 rows, so its cost grows with V while K2's does not. On an
+# NVIDIA H100 (700 W) `benchmarks/scatter_bench.py --mode matmul --c 128
+# --rows 6144` (LINE's ctx call) gave K4 4.258 against K2 4.819 ns/row at
+# V = 16,384 and 5.871 against 4.863 at V = 24,576 (PERF.md). At C = 256,
+# 45,696 rows a call K2 is the faster from V = 2,405 on; LINE never
+# scatters that many rows, but the hierarchical-softmax tree scatter does
+# (70,560 rows into 2,404, where K4's tile of the root rows sums them in
+# order and K2 ran 16x faster; PERF.md). The rule stands until a
+# benchmark sets one by rows and V.
+SMALL_V_ROWS = 16_384
+
+
+def scatter_add_table(table, ids, grads):
+    """table[ids] += grads in place (ids outside [0, V) dropped), each row
+    summed in the order of ids: K4 up to SMALL_V_ROWS table rows, K2
+    above. The two are bit-equal, so the rule changes no result."""
+    if table.shape[0] <= SMALL_V_ROWS:
+        return scatter_add_small(table, ids, grads)
+    return scatter_add_rows(table, ids, grads)
+
+
+class RowOps(NamedTuple):
+    """The row kernels a trainer's step runs: gather, scatter-add."""
+
+    gather: object
+    scatter_add: object
+
+
+ROW_KERNELS = RowOps(gather_rows, scatter_add_table)
+# the plain PyTorch versions, which the kernels are held against
+ROW_PLAIN = RowOps(gather_rows_plain, scatter_add_rows_plain)
+
 
 # K5's limits: 16-byte rows (the bulk copy's unit), at most 256 rows and 8
 # ring slots of a stage, and one stage within the 227 KB a block may have

@@ -146,6 +146,31 @@ def _subsample_compact(w, kprob, u):
     return out.scatter_(1, pos, torch.where(km, w, -1))
 
 
+def keep_per_token(walks, counts, sample):
+    """f32 [NW, L] keep-probability of each token of the corpus
+    (`subsample_keep_probs` of its node; pads read node 0's and are
+    dropped by `prepare_epoch`), or None when sample <= 0."""
+    keep = subsample_keep_probs(counts, sample)
+    if keep is None:
+        return None
+    return torch.as_tensor(keep, device=walks.device)[walks.clamp(min=0)
+                                                      .long()]
+
+
+def prepare_epoch(walks, keep_tok, generator):
+    """One epoch's corpus: the walks in a random order, then, when
+    keep_tok is given, each token kept with its probability and every walk
+    left-compacted (`_subsample_compact`). Draws a permutation, then
+    [NW, L] uniforms, from `generator`."""
+    NW, L = walks.shape
+    perm = torch.randperm(NW, generator=generator, device=walks.device)
+    shuffled = walks[perm]
+    if keep_tok is None:
+        return shuffled
+    u = torch.rand((NW, L), generator=generator, device=walks.device)
+    return _subsample_compact(shuffled, keep_tok[perm], u)
+
+
 class BlockGeometry(NamedTuple):
     Bw: int  # walks per step, rounded to whole packing groups
     P: int  # walks per packing group
@@ -288,12 +313,16 @@ def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
 
 
 def plan_block_walks(NW, L, num_nodes, cfg) -> int:
-    """Block size: the configured block (scaled up for large corpora by
-    `block_upscale`), capped at NW // 4 so a small corpus keeps >= 4
-    blocks per epoch, rounded to a multiple of P = 128 // L."""
+    """Block size: the configured block, scaled up for large corpora by
+    `block_upscale`, fitted to the corpus by `fit_block_walks`."""
+    return fit_block_walks(NW, L, block_upscale(NW, num_nodes, cfg))
+
+
+def fit_block_walks(NW, L, requested) -> int:
+    """`requested` walks a block capped at NW // 4, so a small corpus keeps
+    >= 4 blocks per epoch, and rounded to a multiple of P = 128 // L."""
     P = max(min(max(128 // L, 1), NW), 1)
-    bw = min(block_upscale(NW, num_nodes, cfg), max(NW // 4, P))
-    return max((bw // P) * P, P)
+    return max((min(requested, max(NW // 4, P)) // P) * P, P)
 
 
 def block_upscale(NW, num_nodes, cfg) -> int:
@@ -350,19 +379,13 @@ class SkipGramTrainer:
         table = torch.as_tensor(
             negative_table(counts, cfg.ns_exponent, cfg.neg_table_size),
             device=device)
-        keep = subsample_keep_probs(counts, cfg.sample)
-        keep_tok = None if keep is None else torch.as_tensor(
-            keep, device=device)[walks.clamp(min=0).long()]
+        keep_tok = keep_per_token(walks, counts, cfg.sample)
 
         w_cat = self.init_table(num_nodes, gen, device)
         losses, pairs = [], []
         t = 0
         for _ in range(cfg.epochs):
-            perm = torch.randperm(NW, generator=gen, device=device)
-            shuffled = walks[perm]
-            if keep_tok is not None:
-                u = torch.rand((NW, L), generator=gen, device=device)
-                shuffled = _subsample_compact(shuffled, keep_tok[perm], u)
+            shuffled = prepare_epoch(walks, keep_tok, gen)
             for _ in range(chunks_per_epoch):
                 S = cfg.chunk_steps
                 u = torch.rand((S, geo.G, geo.PL), generator=gen,

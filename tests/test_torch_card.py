@@ -5,21 +5,25 @@ imports no jax, so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_card.py -q
 
-Shapes are those of the DeepWalk-on-Wiki and LINE-on-Wiki steps and of the
-row benchmarks. Tolerances: the gathers (K3, K5) are exact; K1 rtol=2e-4,
-atol=1e-5 (split-TF32 products, f32 sums in another order) and the same
-bits from run to run; K2 and K4 are bit-equal to the plain version's
-sequential sum on the CPU and to each other; four SGNS steps rtol=1e-4,
-atol=1e-6 and four LINE steps rtol=1e-5, atol=1e-6 (the plain version on
-the card scatters with atomics).
+Shapes are those of the DeepWalk-on-Wiki (SGNS and hs=1) and LINE-on-Wiki
+steps, of the row benchmarks and of Struc2Vec's walk on flight-brazil.
+Tolerances: the gathers (K3, K5) are exact; K1 rtol=2e-4, atol=1e-5
+(split-TF32 products, f32 sums in another order) and the same bits from
+run to run; K2 and K4 are bit-equal to the plain version's sequential sum
+on the CPU and to each other; four SGNS steps rtol=1e-4, atol=1e-6, four
+LINE steps and four HS steps rtol=1e-5, atol=1e-6 (the plain version on
+the card scatters with atomics); the multilayer walk is bit-identical from
+one seed.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from graphembedding_tpu_torch.data import load_dataset
 from graphembedding_tpu_torch.graph import Graph
 from graphembedding_tpu_torch.models import line
+from graphembedding_tpu_torch.models import struc2vec as s2v
 from graphembedding_tpu_torch.models.line import LINE
 from graphembedding_tpu_torch.ops.rows import (
     dma_gather_plan,
@@ -37,6 +41,7 @@ from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads_plain,
 )
 from graphembedding_tpu_torch.ops.walk import simulate_walks, uniform_walks
+from graphembedding_tpu_torch.train import hsoftmax as hs
 from graphembedding_tpu_torch.train import skipgram as sg
 
 
@@ -334,3 +339,113 @@ def test_four_steps_match_plain(cuda):
                                atol=1e-6)
     np.testing.assert_allclose(la.cpu().numpy(), lb.cpu().numpy(),
                                rtol=1e-4)
+
+
+def hs_tree_ids(rng, n=70_560, v=2404, T=14):
+    """Ids like the DeepWalk hs=1 step's tree scatter: G * PL contexts of T
+    levels, each path starting at the root (row 0: a run of 5,040), about a
+    third of the slots pads (-1)."""
+    ids = rng.integers(1, v, n).astype(np.int32)
+    ids[::T] = 0
+    ids[rng.random(n) < 0.3] = -1
+    return ids
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K2"])
+def test_hs_tree_scatter_matches_plain(cuda, kernel):
+    """K4 and K2 at the HS tree scatter's shape (70,560 ids, C = 129, the
+    occupancy last, into 2,404 rows): bit-equal to the plain version's
+    sequential sum on the CPU and to each other, the same from run to
+    run."""
+    rng = np.random.default_rng(13)
+    ids = torch.from_numpy(hs_tree_ids(rng)).to(cuda)
+    grads = rng.normal(size=(ids.numel(), 129)).astype(np.float32) * 1e-2
+    grads[:, -1] = rng.integers(0, 11, ids.numel())
+    grads = torch.from_numpy(grads).to(cuda)
+    table = torch.zeros((2404, 129), device=cuda)
+    fn = scatter_add_small if kernel == "K4" else scatter_add_rows
+    before = fn.launches
+    got = fn(table.clone(), ids, grads)
+    again = fn(table.clone(), ids, grads)
+    assert fn.launches == before + 2
+    other = (scatter_add_rows if kernel == "K4" else scatter_add_small)(
+        table.clone(), ids, grads)
+    want = scatter_add_rows_plain(table.cpu(), ids.cpu(), grads.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+    assert torch.equal(got, other)
+
+
+def test_hs_tree_gather(cuda):
+    """K3 at the HS tree gather's shape: 70,560 ids (pads read as row 0)
+    of a [2404, 128] table, bit-exact."""
+    rng = np.random.default_rng(14)
+    ids = torch.from_numpy(hs_tree_ids(rng).clip(min=0)).to(cuda)
+    table = torch.randn((2404, 128), device=cuda)
+    before = gather_rows.launches
+    got = gather_rows(table, ids)
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(table, ids))
+
+
+def test_four_hs_steps_match_plain(cuda):
+    """Four HS steps at the DeepWalk hs=1 Wiki widths (Bw = 504: G = 42
+    groups of PL = 120, D = 128, V = 2405) through K3 and K4 against the
+    plain versions, from the same tables and draws: rtol 1e-5, atol 1e-6;
+    two launches of each kernel a step."""
+    V, D, L, NW, W = 2405, 128, 10, 5040, 5
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    walks = torch.randint(0, V, (NW, L), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    walks[::7, 6:] = -1  # dead-ended walks
+    points, codes, _ = hs.build_huffman(sg.corpus_counts(walks, V))
+    points = torch.as_tensor(points, device=cuda)
+    codes = torch.as_tensor(codes, device=cuda)
+    geo = sg.block_geometry(NW, L, 504, 1)
+    eff = W - (torch.rand((4, geo.G, geo.PL), generator=gen, device=cuda)
+               * W).to(torch.int32).clamp(0, W - 1)
+    w_in = (torch.rand((V, D), generator=gen, device=cuda) - 0.5) / D
+    w_tree = torch.randn((V - 1, D), generator=gen, device=cuda) * 0.05
+    before = (gather_rows.launches, scatter_add_small.launches)
+    out = [hs.hs_block_chunk(w_in.clone(), w_tree.clone(), walks, points,
+                             codes, eff, 0.025, 1e-4, 0, 1152.0,
+                             block_walks=504, window=W, ops=ops)
+           for ops in (hs.KERNELS, hs.PLAIN)]
+    assert (gather_rows.launches, scatter_add_small.launches) == (
+        before[0] + 8, before[1] + 8)
+    torch.cuda.synchronize()
+    for a, b in zip(out[0][:3], out[1][:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    assert torch.equal(out[0][3], out[1][3])
+    assert (out[0][1] - w_tree).abs().max() > 1e-4  # it moved
+
+
+def test_multilayer_walks_on_card(cuda):
+    """Struc2Vec's walk on flight-brazil's context graph: bit-identical
+    from one seed, every hop an edge of some layer or a stay."""
+    g = load_dataset("flight-brazil").graph
+    layers = s2v.build_layer_csr(s2v.build_context_graph(g)[0],
+                                 g.num_nodes)
+    ly = s2v.layers_to(layers, cuda)
+    V = g.num_nodes
+    starts = torch.arange(V, dtype=torch.int32, device=cuda).repeat(80)
+
+    def run():
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        return s2v.multilayer_walks(ly["row_ptr"], ly["col_idx"],
+                                    ly["accept"], ly["alias"], ly["gamma"],
+                                    starts, gen, 0.3, length=10)
+
+    walks = run()
+    assert torch.equal(walks, run())
+    w = walks.cpu().numpy().astype(np.int64)
+    rp = layers["row_ptr"].astype(np.int64)
+    deg = np.diff(rp, axis=1)
+    keys = np.concatenate([np.repeat(np.arange(V), deg[k]) * V
+                           + layers["col_idx"][k, :rp[k, -1]]
+                           for k in range(rp.shape[0])])
+    u, v = w[:, :-1].ravel(), w[:, 1:].ravel()
+    assert (np.isin(u * V + v, keys) | ((u == v) & (deg[:, u] == 0).any(0))
+            ).all()

@@ -245,15 +245,19 @@ def test_line_trains_each_order_on_cpu():
 
 
 def test_scatter_gate(monkeypatch):
-    """K4 takes tables up to SMALL_V_ROWS rows, K2 the larger ones."""
+    """LINE scatters through the shared rule of `ops.rows`: K4 takes tables
+    up to SMALL_V_ROWS rows, K2 the larger ones."""
+    from graphembedding_tpu_torch.ops import rows
+
+    assert tline.KERNELS.scatter_add is rows.scatter_add_table
     calls = []
-    monkeypatch.setattr(tline, "scatter_add_small",
+    monkeypatch.setattr(rows, "scatter_add_small",
                         lambda *a: calls.append("K4"))
-    monkeypatch.setattr(tline, "scatter_add_rows",
+    monkeypatch.setattr(rows, "scatter_add_rows",
                         lambda *a: calls.append("K2"))
     ids = torch.zeros(1, dtype=torch.int32)
-    for v in (2405, tline.SMALL_V_ROWS, tline.SMALL_V_ROWS + 1):
-        tline.scatter_add(torch.empty((v, 8)), ids, torch.zeros(1, 8))
+    for v in (2405, rows.SMALL_V_ROWS, rows.SMALL_V_ROWS + 1):
+        rows.scatter_add_table(torch.empty((v, 8)), ids, torch.zeros(1, 8))
     assert calls == ["K4", "K4", "K2"]
 
 

@@ -98,8 +98,9 @@ def test_deepwalk_hard_sbm_gate():
 def test_unsupported_options_raise():
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
     m = DeepWalk(ds.graph, walk_length=5, num_walks=2, device="cpu")
-    for kw in ({"hs": 1}, {"trainer": "dense"}, {"mesh": object()},
-               {"checkpoint_dir": "ckpt"}, {"cap_mode": "sparse"}):
+    for kw in ({"trainer": "dense"}, {"mesh": object()},
+               {"checkpoint_dir": "ckpt"}, {"cap_mode": "sparse"},
+               {"hs": 1, "metrics": object()}):
         with pytest.raises(NotImplementedError):
             m.train(embed_size=8, iter=1, **kw)
     for cls, kw in ((DeepWalk, {"mesh": object()}),
@@ -110,9 +111,11 @@ def test_unsupported_options_raise():
     # the JAX package's default is accepted
     DeepWalk(ds.graph, walk_length=5, num_walks=2, walk_exchange=None,
              device="cpu")
+    # hs=1 trains hierarchical softmax: w_out is the [V - 1, D] tree
     n2v = Node2Vec(ds.graph, walk_length=5, num_walks=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        n2v.train(embed_size=8, iter=1, hs=1)
+    n2v.train(embed_size=8, iter=1, hs=1)
+    assert tuple(n2v.w_out.shape) == (59, 8)
+    assert n2v.losses.numel() > 0 and torch.isfinite(n2v.losses).all()
 
 
 @pytest.mark.parametrize("model", ["DeepWalk", "Node2Vec", "LINE"])
@@ -140,6 +143,9 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.interop, "
             "graphembedding_tpu_torch.models.line, "
             "graphembedding_tpu_torch.models.node2vec, "
+            "graphembedding_tpu_torch.models.struc2vec, "
+            "graphembedding_tpu_torch.train.hsoftmax, "
+            "graphembedding_tpu_torch.native, "
             "graphembedding_tpu_torch.ops.walk, "
             "graphembedding_tpu_torch.benchmarks.dma_gather, "
             "graphembedding_tpu_torch.benchmarks.scatter_bench, "
