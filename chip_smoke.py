@@ -76,6 +76,33 @@ Phases, one or more lines each:
      seconds, K, E_max, the walk's device events, and the device time and
      busy share of one warm train (torch.profiler).
 
+ 16. SDNE parity, card against CPU: on the Wiki graph with hidden [256,
+     128], three full-batch steps (train(batch_size=3000, epochs=3)),
+     three minibatch steps (train(batch_size=1024, epochs=1)) and three
+     train_sparse steps (row_chunk=512), each from the same initial
+     parameters and permutation (both drawn on the CPU): the losses within
+     rtol 1e-5 of the CPU run, each parameter's update within 1e-3 of the
+     CPU's in L2 norm, and two card runs bit-identical;
+ 17. SDNE Wiki paths: load_dataset('wiki') -> SDNE(hidden_size=[256,
+     128], device='cuda') -> train(batch_size=3000, epochs=40) (full
+     batch), train(batch_size=1024, epochs=40) (minibatch) or
+     train_sparse(epochs=40) -> get_embeddings -> Classifier; micro-F1 >=
+     0.72 each; cold and warm train s, rows/s (V * epochs / train s), and
+     the device time and busy share of one warm train (torch.profiler);
+ 18. SDNE sparse at scale: synthetic_wiki(num_nodes=100_000,
+     avg_degree=10.0) -> SDNE([256, 128]) -> train_sparse(epochs=2,
+     row_chunk=512), then once more warm: A and L never built, losses
+     finite, torch.cuda.max_memory_allocated() under 8 GiB (a dense [V, V]
+     alone is 40 GB), s an epoch warm; then one epoch timed alone and one
+     under torch.profiler (device time and busy share);
+ 19. dense trainers on Wiki: DeepWalk(walk_length=10, num_walks=80) ->
+     train(embed_size=128, window_size=5, trainer='dense') (micro-F1 >=
+     0.93) and LINE(embedding_size=128, order='second') ->
+     train(trainer='dense') (micro-F1 >= 0.70); cold and warm train s and
+     the busy share of one warm train.
+Phases 16-19 run none of K1-K5 (their products are cuBLAS calls and
+plain PyTorch); the run fails if any kernel's count moves in them.
+
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
 Phase 2 also builds Struc2Vec's C++ library with g++ (a missing compiler
@@ -114,6 +141,24 @@ S2V_MIN_MICRO_F1 = 0.80
 # four HS steps, kernels against plain versions: the plain scatter on the
 # card sums with atomics, in another order (tests/test_torch_card.py)
 HS_RTOL, HS_ATOL = 1e-5, 1e-6
+# SDNE on the Wiki graph, each trainer: the JAX package gives 0.7547-0.7817
+# (full batch), 0.7651-0.7796 (minibatch) and 0.7568-0.7817 (sparse) on the
+# CPU over seeds 0-2 (tools/reference_f1.py)
+SDNE_MIN_MICRO_F1 = 0.72
+# trainer='dense': DeepWalk 0.9563-0.9688, LINE order 'second' 0.7443-0.7651
+# (the same tool)
+DENSE_DW_MIN_MICRO_F1 = 0.93
+DENSE_LINE_MIN_MICRO_F1 = 0.70
+# SDNE steps on the card against the CPU: the losses within rtol 1e-5, and
+# each parameter's update (its value minus the shared initial value) within
+# 1e-3 of the CPU's in L2 norm. Not elementwise: Adam's step is about
+# lr * grad / (|grad| + eps), so an element whose gradient is near zero
+# turns its last-bit differences (the card sums in another order)
+# into a step of up to lr (measured: 4.4e-5 on 1 of 1.3M elements)
+SDNE_LOSS_RTOL, SDNE_UPDATE_RTOL = 1e-5, 1e-3
+# train_sparse at V = 100,000: parameters, Adam state and gradients take
+# about 0.8 GB, one chunk's [512, V] tensors about 0.2 GB each
+SDNE_SPARSE_MAX_BYTES = 8 << 30
 DEVICE = "cuda"
 
 
@@ -150,7 +195,8 @@ def rows_bound_ms(ids, V, C, out_rows):
 
 def device_events(fn):
     """(name, us) of each device kernel (and copy) one call of fn ran, by
-    torch.profiler; None where the trace holds no device events."""
+    torch.profiler (user annotations left out); None where the trace holds
+    no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -161,7 +207,8 @@ def device_events(fn):
         fn()
         torch.cuda.synchronize()
     events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
     return events or None
 
 
@@ -440,6 +487,8 @@ def main():
     node2vec_phases(dev, card)
     hs_phases(dev, card, records, record)
     struc2vec_phase(dev, card)
+    sdne_phases(dev, card)
+    dense_phase(dev, card)
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
@@ -1097,6 +1146,218 @@ def struc2vec_phase(dev, card):
               f"({k['share']:.3f})")
     if not res["micro"] >= S2V_MIN_MICRO_F1:
         fail(f"Struc2Vec micro-F1 {res['micro']:.4f} < {S2V_MIN_MICRO_F1}")
+
+
+def no_kernel_launched(what, fn):
+    """fn(), failing if it launched any of K1-K5."""
+    from graphembedding_tpu_torch.ops.rows import (
+        dma_gather_rows, gather_rows, scatter_add_rows, scatter_add_small)
+    from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
+
+    kernels = (sgns_block_grads, scatter_add_rows, gather_rows,
+               scatter_add_small, dma_gather_rows)
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    launched = {k.__name__: k.launches for k in kernels if k.launches}
+    if launched:
+        fail(f"{what} launched {launched}; it runs none of K1-K5")
+    return out
+
+
+def profiled_text(fn, seconds, what="train"):
+    """Device time and busy share of one call of fn (a `what`) that took
+    `seconds` warm (torch.profiler)."""
+    from graphembedding_tpu_torch.benchmarks.train_profile import (
+        breakdown, device_events as profile_events)
+
+    prof = breakdown(profile_events(fn), 3)
+    heavy = "; ".join(f"{k['name'][:48]} {k['ms']:.2f} ms ({k['share']:.3f})"
+                      for k in prof["kernels"])
+    return (f"one warm {what} under torch.profiler: device "
+            f"{prof['device_ms']:.2f} ms, busy {prof['busy_ms']:.2f} ms in "
+            f"{prof['device_events']} device events, busy share "
+            f"{prof['busy_ms'] / 1e3 / seconds:.4f}; heaviest: {heavy}")
+
+
+def sdne_phases(dev, card):
+    """Phases 16-18: SDNE steps on the card against the CPU, the three
+    trainers on Wiki, and train_sparse at V = 100,000."""
+    import torch
+
+    from graphembedding_tpu_torch import SDNE
+    from graphembedding_tpu_torch.data import load_dataset, synthetic_wiki
+    from graphembedding_tpu_torch.eval.classify import Classifier
+
+    # 16. three steps of each trainer, card against CPU, from the same
+    # initial parameters and permutation (the port draws both on the CPU)
+    ds = load_dataset("wiki")
+    V = ds.graph.num_nodes
+    trains = {
+        "full": lambda m, e: m.train(batch_size=3000, epochs=e),
+        "minibatch": lambda m, e: m.train(batch_size=1024, epochs=e),
+        "sparse": lambda m, e: m.train_sparse(epochs=e, row_chunk=512),
+    }
+
+    def three_steps(mode, device):
+        """(initial parameters, parameters after three steps, losses), on
+        the CPU."""
+        m = SDNE(ds.graph, hidden_size=[256, 128], device=device)
+        init = [p.detach().cpu().clone() for p in m.net.parameters()]
+        trains[mode](m, 1 if mode == "minibatch" else 3)
+        if m.losses.shape != (3,):
+            fail(f"SDNE {mode}: {tuple(m.losses.shape)} losses, want 3")
+        return init, [p.detach().cpu() for p in m.net.parameters()], \
+            m.losses.cpu()
+
+    for mode in trains:
+        init, want, want_loss = three_steps(mode, "cpu")
+        runs = no_kernel_launched(
+            f"SDNE {mode} steps",
+            lambda: [three_steps(mode, dev) for _ in range(2)])
+        (init_c, got, loss), (_, again, loss_again) = runs
+        if not (all(torch.equal(a, b) for a, b in zip(got, again))
+                and torch.equal(loss, loss_again)):
+            fail(f"SDNE {mode}: two runs on the card differ")
+        if not all(torch.equal(a, b) for a, b in zip(init, init_c)):
+            fail(f"SDNE {mode}: the card started from other parameters")
+        loss_err = max_err(loss, want_loss, SDNE_LOSS_RTOL, 0.0,
+                           f"SDNE {mode} losses, card against CPU")
+        ratios = [float((a - b).norm() / (b - p0).norm())
+                  for a, b, p0 in zip(got, want, init)]
+        if not max(ratios) <= SDNE_UPDATE_RTOL:
+            fail(f"SDNE {mode}: the card's updates differ from the CPU's by "
+                 f"{ratios} (L2, relative)")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        print(f"SDNE {mode} parity: 3 steps on the card against the CPU: "
+              f"losses max abs err {loss_err:.3e} (rtol {SDNE_LOSS_RTOL}); "
+              f"updates' relative L2 error at most {max(ratios):.3e} "
+              f"(bound {SDNE_UPDATE_RTOL}); parameters max abs err "
+              f"{err:.3e}; two card runs bit-identical", flush=True)
+
+    # 17. the three trainers on Wiki through the model's entry points
+    for mode, train in trains.items():
+        def path():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            train(model, 40)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res = Classifier(model.get_embeddings()).split_train_evaluate(
+                ds.X, ds.Y, 0.8, seed=0)
+            return model, res, t1 - t0, t2 - t1
+
+        model, res, init_s, cold_s = no_kernel_launched(f"SDNE {mode}", path)
+        table = model.embedding_table
+        n_loss = 3 * 40 if mode == "minibatch" else 40
+        if (tuple(table.shape) != (V, 128) or not torch.isfinite(table).all()
+                or model.losses.shape != (n_loss,)
+                or not torch.isfinite(model.losses).all()):
+            fail(f"SDNE {mode}: embeddings {tuple(table.shape)} or losses "
+                 f"{tuple(model.losses.shape)} wrong or non-finite")
+        if mode == "sparse" and not (model._A is None and model._L is None):
+            fail("SDNE sparse: the dense A or L was built")
+        warm_s = min(timed_walks(lambda: train(model, 40))[1]
+                     for _ in range(2))
+        print(f"SDNE {mode} on Wiki: constructor {init_s:.4f} s, train 40 "
+              f"epochs cold {cold_s:.4f} s ({V * 40 / cold_s:.4e} rows/s), "
+              f"warm {warm_s:.4f} s ({V * 40 / warm_s:.4e} rows/s); final "
+              f"loss {float(model.losses[-1]):.4f}; "
+              f"{profiled_text(lambda: train(model, 40), warm_s)} [{card}]",
+              flush=True)
+        print(f"SDNE {mode} micro-F1: {res['micro']:.4f}, macro-F1: "
+              f"{res['macro']:.4f} [{card}]", flush=True)
+        if not res["micro"] >= SDNE_MIN_MICRO_F1:
+            fail(f"SDNE {mode} micro-F1 {res['micro']:.4f} < "
+                 f"{SDNE_MIN_MICRO_F1}")
+
+    # 18. train_sparse at V = 100,000: no [V, V], a bounded peak
+    t0 = time.perf_counter()
+    big = synthetic_wiki(num_nodes=100_000, avg_degree=10.0).graph
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = SDNE(big, hidden_size=[256, 128], device=dev)
+    _, cold_s = timed_walks(lambda: no_kernel_launched(
+        "SDNE sparse at 100k", lambda: model.train_sparse(epochs=2,
+                                                          row_chunk=512)))
+    _, warm_s = timed_walks(lambda: model.train_sparse(epochs=2,
+                                                       row_chunk=512))
+    peak = torch.cuda.max_memory_allocated()
+    if not (model._A is None and model._L is None):
+        fail("SDNE sparse at 100k: the dense A or L was built")
+    if model.losses.shape != (2,) or not torch.isfinite(model.losses).all():
+        fail(f"SDNE sparse at 100k: losses {model.losses.tolist()}")
+    nbr_width = big.neighbor_ids(dev).shape[1]
+    losses = [round(x, 2) for x in model.losses.tolist()]
+    _, epoch_s = timed_walks(lambda: model.train_sparse(epochs=1,
+                                                        row_chunk=512))
+    one_epoch = profiled_text(
+        lambda: model.train_sparse(epochs=1, row_chunk=512), epoch_s,
+        "epoch")
+    print(f"SDNE sparse at V={big.num_nodes} ({big.num_edges} edges, "
+          f"neighbor matrix [{big.num_nodes}, {nbr_width}], "
+          f"{-(-big.num_nodes // 512)} chunks of [512, {big.num_nodes}]): "
+          f"graph {t1 - t0:.2f} s (host); 2 epochs cold {cold_s:.4f} s, "
+          f"warm {warm_s:.4f} s = {warm_s / 2:.4f} s an epoch; losses "
+          f"{losses}; A and L never built; peak allocated "
+          f"{peak / 2**30:.3f} GiB (bound "
+          f"{SDNE_SPARSE_MAX_BYTES / 2**30:.0f} GiB; a dense [V, V] is "
+          f"{4 * big.num_nodes ** 2 / 1e9:.0f} GB); one more epoch "
+          f"{epoch_s:.4f} s, {one_epoch} [{card}]",
+          flush=True)
+    if peak >= SDNE_SPARSE_MAX_BYTES:
+        fail(f"SDNE sparse at 100k: peak {peak} bytes over the bound")
+
+
+def dense_phase(dev, card):
+    """Phase 19: trainer='dense' for DeepWalk and LINE on Wiki."""
+    import torch
+
+    from graphembedding_tpu_torch import LINE, DeepWalk
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.eval.classify import Classifier
+
+    ds = load_dataset("wiki")
+    V = ds.graph.num_nodes
+    cases = [
+        ("DeepWalk", lambda: DeepWalk(ds.graph, walk_length=10,
+                                      num_walks=80, device=dev),
+         lambda m: m.train(embed_size=128, window_size=5, trainer="dense"),
+         DENSE_DW_MIN_MICRO_F1),
+        ("LINE", lambda: LINE(ds.graph, embedding_size=128, order="second",
+                              device=dev),
+         lambda m: m.train(trainer="dense"), DENSE_LINE_MIN_MICRO_F1),
+    ]
+    for name, make, train, gate in cases:
+        def path():
+            model = make()
+            _, cold_s = timed_walks(lambda: train(model))
+            return model, cold_s
+
+        model, cold_s = no_kernel_launched(f"{name} dense", path)
+        table = model.embedding_table.clone()
+        if (tuple(table.shape) != (V, 128) or not torch.isfinite(table).all()
+                or not torch.isfinite(model.losses).all()):
+            fail(f"{name} dense: embeddings {tuple(table.shape)} or losses "
+                 f"non-finite")
+        res = Classifier(model.get_embeddings()).split_train_evaluate(
+            ds.X, ds.Y, 0.8, seed=0)
+        warm_s = min(timed_walks(lambda: train(model))[1] for _ in range(2))
+        if not torch.equal(model.embedding_table, table):
+            fail(f"{name} dense: a second train gave other tables")
+        print(f"{name} trainer='dense' on Wiki (300 Adam steps): train cold "
+              f"{cold_s:.4f} s, warm {warm_s:.4f} s, bit-identical on a "
+              f"second train; final loss {float(model.losses[-1]):.4f}; "
+              f"{profiled_text(lambda: train(model), warm_s)} [{card}]",
+              flush=True)
+        print(f"{name} dense micro-F1: {res['micro']:.4f}, macro-F1: "
+              f"{res['macro']:.4f} [{card}]", flush=True)
+        if not res["micro"] >= gate:
+            fail(f"{name} dense micro-F1 {res['micro']:.4f} < {gate}")
 
 
 if __name__ == "__main__":

@@ -2,10 +2,12 @@
 
 A port of `graphembedding_tpu` (JAX on a TPU) to PyTorch with hand-written
 CUDA kernels for an NVIDIA H100. It covers DeepWalk, Node2Vec (exact and
-rejection (p,q) walks), Struc2Vec, LINE (its sampled trainer) and the
-walk models' two objectives, SGNS and hierarchical softmax (hs=1):
+rejection (p,q) walks), Struc2Vec, LINE, SDNE, and the walk models'
+objectives: sampled SGNS, hierarchical softmax (hs=1) and the closed-form
+expected SGNS (trainer='dense', also LINE's):
 
-    from graphembedding_tpu_torch import LINE, DeepWalk, Node2Vec, Struc2Vec
+    from graphembedding_tpu_torch import (DeepWalk, LINE, Node2Vec, SDNE,
+                                          Struc2Vec)
     from graphembedding_tpu_torch.data import load_dataset
 
     ds = load_dataset("wiki")
@@ -28,15 +30,30 @@ walk models' two objectives, SGNS and hierarchical softmax (hs=1):
     line = LINE(ds.graph, embedding_size=128, order="second", device="cuda")
     line.train(batch_size=1024, epochs=50)
     embeddings = line.get_embeddings()
+    line.train(trainer="dense", steps=300, lr=0.1)   # closed form
+
+    dw.train(embed_size=128, window_size=5, trainer="dense")
+
+    sdne = SDNE(ds.graph, hidden_size=[256, 128], device="cuda")
+    sdne.train(batch_size=3000, epochs=40)   # batch >= V: full batch
+    sdne.train(batch_size=1024, epochs=40)   # the minibatch loop
+    sdne.train_sparse(epochs=40, row_chunk=512)   # never builds [V, V]
+    embeddings = sdne.get_embeddings()   # {node: np.ndarray[128]}
 
 This package imports torch, numpy and scipy, never jax; Struc2Vec's
 context graph also builds a C++ library with g++ at first use.
 """
 
 from graphembedding_tpu_torch.graph import Graph
-from graphembedding_tpu_torch.models import LINE, DeepWalk, Node2Vec, Struc2Vec
+from graphembedding_tpu_torch.models import (
+    LINE,
+    SDNE,
+    DeepWalk,
+    Node2Vec,
+    Struc2Vec,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["Graph", "DeepWalk", "LINE", "Node2Vec", "Struc2Vec",
+__all__ = ["Graph", "DeepWalk", "LINE", "Node2Vec", "SDNE", "Struc2Vec",
            "__version__"]

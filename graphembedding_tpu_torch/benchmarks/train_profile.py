@@ -30,7 +30,9 @@ from graphembedding_tpu_torch.benchmarks.common import require_card
 
 def device_events(fn):
     """(name, start us, end us) of every device event of one call of fn,
-    from torch.profiler."""
+    from torch.profiler. User annotations (such as the optimizer's
+    `Optimizer.step` range, which the trace also draws on the device's
+    timeline) are not device work and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,7 +42,8 @@ def device_events(fn):
         fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
+            for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
 
 
 def busy_us(events):

@@ -3,7 +3,10 @@
 The JAX package keeps `w_in` and `w_out` as two [V, D] arrays at its API;
 the port's walk models train one fused [V, 2D] table. LINE keeps the same
 three [V, D] tables in both packages, and the hierarchical-softmax trainer
-the same w_in [V, D] and w_tree [max(V - 1, 1), D]. The functions take and give
+the same w_in [V, D] and w_tree [max(V - 1, 1), D]. SDNE's parameters are a
+pytree {"enc": [{"w", "b"}, ...], "dec": [...]} in the JAX package and an
+`nn.Module` state here, with every `w` in the same [in, out] orientation
+(`x @ w + b`), so no weight is transposed. The functions take and give
 numpy-convertible arrays, so the port never imports jax: `np.asarray`
 reads a JAX array without it.
 """
@@ -42,3 +45,22 @@ def hs_tables_from_jax(w_in, w_tree):
     port's device first)."""
     return tuple(torch.from_numpy(np.array(t, dtype=np.float32))
                  for t in (w_in, w_tree))
+
+
+def sdne_params_from_jax(params):
+    """A JAX `SDNE.params` pytree {"enc": [{"w": [in, out], "b": [out]},
+    ...], "dec": [...]} -> a float32 CPU state dict for the port's
+    `SDNE.net.load_state_dict` (keys "enc.0.w", "enc.0.b", ...)."""
+    return {f"{stack}.{i}.{k}": torch.from_numpy(
+                np.array(layer[k], dtype=np.float32))
+            for stack in ("enc", "dec")
+            for i, layer in enumerate(params[stack]) for k in ("w", "b")}
+
+
+def sdne_params_to_numpy(net):
+    """The port's SDNE autoencoder (`SDNE.net`) -> the JAX package's
+    pytree layout, float32 numpy arrays."""
+    return {stack: [{"w": layer.w.detach().cpu().numpy(),
+                     "b": layer.b.detach().cpu().numpy()}
+                    for layer in getattr(net, stack)]
+            for stack in ("enc", "dec")}

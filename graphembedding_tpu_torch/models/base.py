@@ -1,7 +1,8 @@
 """Shared machinery of the walk + skip-gram models.
 
 Counterpart of `graphembedding_tpu/models/base.py`: the walk-block SGNS
-trainer, or the hierarchical-softmax trainer with `hs=1`. Models accept a
+trainer, the hierarchical-softmax trainer with `hs=1`, or the closed-form
+expected-SGNS fit with `trainer='dense'`. Models accept a
 networkx graph or a `graphembedding_tpu_torch.Graph`, and run on the
 `device` they are given: the CUDA card by default, the CPU only when the
 caller asks for it.
@@ -15,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from graphembedding_tpu_torch.graph import Graph
+from graphembedding_tpu_torch.train.dense import DenseSGNSTrainer
 from graphembedding_tpu_torch.train.hsoftmax import HSTrainer
 from graphembedding_tpu_torch.train.skipgram import (
     SkipGramConfig,
@@ -67,15 +69,17 @@ class WalkEmbeddingModel:
                       hs=0, trainer="block", checkpoint_dir=None,
                       checkpoint_every=0, metrics=None, **kwargs):
         del workers, checkpoint_every
+        if trainer == "dense":
+            return self._fit_dense(embed_size, window_size, negative, hs,
+                                   mesh, checkpoint_dir, metrics, kwargs)
+        if trainer != "block":
+            raise ValueError(f"unknown trainer {trainer!r}")
         unsupported = {"mesh": mesh, "checkpoint_dir": checkpoint_dir,
                        "metrics": metrics}
         for name, value in unsupported.items():
             if value:
                 raise NotImplementedError(
                     f"{name}= is not ported to graphembedding_tpu_torch")
-        if trainer != "block":
-            raise NotImplementedError(
-                f"trainer={trainer!r} is not ported; only 'block' is")
         for name in _NOT_PORTED:
             if name in kwargs:
                 raise NotImplementedError(
@@ -111,6 +115,31 @@ class WalkEmbeddingModel:
         D = cfg.embed_size
         self.w_in, self.w_out = w_cat[:, :D], w_cat[:, D:]
         self.trained_pairs = sgns.trained_pairs_
+        self._embeddings = None
+        return self
+
+    def _fit_dense(self, embed_size, window_size, negative, hs, mesh,
+                   checkpoint_dir, metrics, kwargs):
+        """trainer='dense': the closed-form expected-SGNS fit
+        (`train.dense`), with the JAX package's rules: window and seed
+        kwargs win, steps, lr and max_nodes pass through, other kwargs are
+        ignored, and seed + 1 draws the initial table."""
+        if hs:
+            raise ValueError("trainer='dense' trains the SGNS objective; "
+                             "use hs=0")
+        if mesh is not None or checkpoint_dir or metrics:
+            raise ValueError(
+                "trainer='dense' is the single-card small-graph path and "
+                "does not support mesh=, checkpoint_dir= or metrics=")
+        seed = kwargs.get("seed", self.seed)
+        dtr = DenseSGNSTrainer(
+            embed_size=embed_size, window=kwargs.get("window", window_size),
+            negative=negative, seed=seed,
+            **{k: kwargs[k] for k in ("steps", "lr", "max_nodes")
+               if k in kwargs})
+        self.w_in, self.w_out, self.losses = dtr.fit(
+            self.walks, self.graph.num_nodes, seed=seed + 1)
+        self.trained_pairs = 0.0  # an expectation: no pairs are sampled
         self._embeddings = None
         return self
 

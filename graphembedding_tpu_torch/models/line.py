@@ -20,9 +20,16 @@ inputs, so a test can hand it the JAX package's draws. The generators'
 streams differ from JAX's, so whole trainings agree in distribution and
 micro-F1 band, not in value.
 
-Not ported: `trainer='dense'` (waits for the dense trainer), `mesh=`,
-`sync_every=`, `checkpoint_dir=`/`checkpoint_every`; each raises
-NotImplementedError.
+`trainer='dense'` optimizes LINE's EXPECTED objective in closed form
+(`train.dense.dense_fit`): the positive-pair expectation of edge sampling
+is the weighted adjacency (duplicate edges summed), the negatives the
+rank-1 wdeg^0.75 expectation; order 'first' trains one tied table, order
+'second' an untied pair. Its initial tables come from CPU generators, one
+stream an order, as the sampled trainer's draws do.
+
+Not ported: `mesh=`, `sync_every=`, `checkpoint_dir=`/`checkpoint_every`;
+each raises NotImplementedError with the sampled trainer (the dense one
+ignores them, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ import torch.nn.functional as F
 from graphembedding_tpu_torch.models.base import as_graph, model_device
 from graphembedding_tpu_torch.ops.alias import build_alias_table
 from graphembedding_tpu_torch.ops.rows import ROW_KERNELS, ROW_PLAIN
+from graphembedding_tpu_torch.ops.spmm import adjacency
+from graphembedding_tpu_torch.train.dense import (
+    DenseSGNSConfig,
+    dense_fit,
+    initial_table,
+)
 from graphembedding_tpu_torch.train.skipgram import inverse_cdf_table
 
 # steps a chunk of draws covers; a run is whole chunks, as in the JAX package
@@ -184,6 +197,14 @@ def line_train(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
     return emb, ctx, torch.cat(losses)
 
 
+def dense_line_inputs(graph, device):
+    """(A [V, V], q [V]) of LINE's closed-form objective: the weighted
+    adjacency with duplicate edges summed (from the coalesced CSR, so the
+    same bits on every run) and q = wdeg^0.75."""
+    A = adjacency(graph, device=device).to_dense()
+    return A, A.sum(1).clamp(min=0.0).pow(0.75)
+
+
 class LINE:
     def __init__(self, graph, embedding_size=8, negative_ratio=5,
                  order="second", seed=0, k_shared=0, update_cap=8.0,
@@ -230,13 +251,13 @@ class LINE:
     def train(self, batch_size=1024, epochs=1, initial_lr=0.025, verbose=0,
               times=1, checkpoint_dir=None, checkpoint_every=0, mesh=None,
               sync_every=None, trainer="sampled", steps=300, lr=0.1):
-        """The reference signature. round(epochs * times * E / batch_size)
-        steps per order, run as whole chunks of CHUNK_STEPS. Only the sampled
-        trainer is ported; `steps` and `lr` belong to the dense one."""
-        del verbose, steps, lr
+        """The reference signature. The sampled trainer runs
+        round(epochs * times * E / batch_size) steps per order, as whole
+        chunks of CHUNK_STEPS; trainer='dense' runs `steps` Adam steps at
+        `lr` on the closed-form objective."""
+        del verbose
         if trainer == "dense":
-            raise NotImplementedError(
-                "trainer='dense' is not ported to graphembedding_tpu_torch")
+            return self._train_dense(steps=steps, lr=lr)
         if trainer != "sampled":
             raise ValueError(f"unknown trainer {trainer!r}")
         unsupported = {"mesh": mesh, "sync_every": sync_every,
@@ -268,6 +289,34 @@ class LINE:
                 self.second_emb, self.context_emb, *edges,
                 self._generator(1), initial_lr, **kw)
             self.sampled_edges += self.losses.shape[0] * batch_size
+        self._embeddings = None
+        return self
+
+    def _train_dense(self, *, steps, lr):
+        """The closed-form expected-LINE fit (see the module docstring)."""
+        dcfg = DenseSGNSConfig(steps=steps, lr=lr, seed=self.seed)
+        V, D = self.graph.num_nodes, self.embedding_size
+        if V > dcfg.max_nodes:
+            raise ValueError(f"trainer='dense' is for V <= {dcfg.max_nodes}; "
+                             "use the sampled trainer at scale")
+        A, q = dense_line_inputs(self.graph, self.device)
+
+        def fit(stream, tied):
+            U0 = initial_table(V, D, 2 * (self.seed + 1) + stream,
+                               self.device)
+            return dense_fit(A, U0, self.negative_ratio, dcfg.ns_exponent,
+                             dcfg.lr, dcfg.b1, dcfg.b2, dcfg.eps,
+                             steps=dcfg.steps, q=q, tied=tied)
+
+        losses = []
+        if self.order in ("first", "all"):
+            self.first_emb, _, l1 = fit(0, True)
+            losses.append(l1)
+        if self.order in ("second", "all"):
+            self.second_emb, self.context_emb, l2 = fit(1, False)
+            losses.append(l2)
+        self.losses = torch.cat(losses)
+        self.sampled_edges = 0
         self._embeddings = None
         return self
 

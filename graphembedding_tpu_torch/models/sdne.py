@@ -1,0 +1,350 @@
+"""SDNE (Wang et al., KDD'16): a deep autoencoder over adjacency rows.
+
+Counterpart of `graphembedding_tpu/models/sdne.py`. The encoder maps a
+row of the adjacency A through relu Dense layers V -> 256 -> 128 = Y, and
+the decoder mirrors it back to V, relu after every layer including the
+last. The objective is
+  - l_2nd: the beta-weighted reconstruction, mean over rows of
+    sum(((A - A_hat) * b)^2) with b = beta where A != 0 else 1;
+  - l_1st: alpha * 2 * tr(Y^T L Y) / batch, L = D - A_sym on the
+    symmetrized adjacency;
+  - the L1 and L2 weight penalty (nu1, nu2) over every layer's weights.
+
+Three trainers, each Adam (`torch.optim.Adam`, optax.adam's constants):
+  - `train(batch_size >= V)`: full batch, one step an epoch on the dense
+    [V, V] A and L;
+  - `train(batch_size < V)`: the reference's minibatch loop,
+    ceil(V / batch_size) steps an epoch over a permutation padded by its
+    own head, each step on A[idx] and the block L[idx][:, idx]
+    (`minibatch_epoch` takes the permutation as an input);
+  - `train_sparse`: never builds [V, V]. The first layer is a CSR SpMM,
+    the Laplacian term `ops.spmm.laplacian_quadratic`, and the
+    reconstruction is summed in row chunks, each rebuilt from the padded
+    neighbor matrix and run under `torch.utils.checkpoint`, so autograd
+    keeps no chunk's [C, V].
+
+Weights are Glorot-uniform with zero biases, drawn from a
+`torch.Generator(seed)` on the CPU and then moved, so the initial
+parameters do not depend on the device; permutations come from a CPU
+`torch.Generator(seed + 2)`. Weights keep the JAX package's [in, out]
+orientation. Every product runs in full float32 (matmul precision
+"highest"); TF32 would change the results. On the card, training is
+bit-identical from run to run.
+
+Not ported: `mesh=` and `checkpoint_dir=` raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from graphembedding_tpu_torch.models.base import as_graph, model_device
+from graphembedding_tpu_torch.ops.spmm import (
+    adjacency,
+    csr_from_edges,
+    csr_row_sums,
+    laplacian_quadratic,
+    spmm,
+)
+from graphembedding_tpu_torch.utils.precision import f32_matmul
+
+
+class Dense(nn.Module):
+    """relu(x @ w + b); w is [in, out], Glorot-uniform with the limit
+    sqrt(6 / (in + out)), b zeros."""
+
+    def __init__(self, fan_in, fan_out, generator):
+        super().__init__()
+        limit = float(np.sqrt(6.0 / (fan_in + fan_out)))
+        u = torch.rand((fan_in, fan_out), generator=generator)
+        self.w = nn.Parameter(u * (2.0 * limit) - limit)
+        self.b = nn.Parameter(torch.zeros(fan_out))
+
+    def forward(self, x):
+        return torch.relu(x @ self.w + self.b)
+
+
+class Autoencoder(nn.Module):
+    """The encoder stack V -> hidden_size and the decoder back to V."""
+
+    def __init__(self, num_nodes, hidden_size, seed):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        enc = [num_nodes] + list(hidden_size)
+        dec = list(reversed(hidden_size)) + [num_nodes]
+        self.enc = nn.ModuleList(
+            Dense(a, b, gen) for a, b in zip(enc, enc[1:]))
+        self.dec = nn.ModuleList(
+            Dense(a, b, gen) for a, b in zip(dec, dec[1:]))
+
+    def encode(self, a_rows):
+        return run_stack(self.enc, a_rows)
+
+    def encode_sparse(self, A, At):
+        """The encoder on all of a CSR adjacency: the first layer as a CSR
+        SpMM (At carries its gradient), the rest dense."""
+        first = self.enc[0]
+        h = torch.relu(spmm(A, first.w, At) + first.b)
+        return run_stack(self.enc[1:], h)
+
+    def decode(self, y):
+        return run_stack(self.dec, y)
+
+    def weights(self):
+        return [layer.w for layer in (*self.enc, *self.dec)]
+
+
+def run_stack(layers, x):
+    for layer in layers:
+        x = layer(x)
+    return x
+
+
+def mlp_activations(layers, x):
+    """Per-layer activations of a Dense stack (for allclose parity against
+    `parity.reference.mlp_forward`)."""
+    acts = []
+    for layer in layers:
+        x = layer(x)
+        acts.append(x)
+    return acts
+
+
+def weight_penalty(net, nu1, nu2):
+    """nu1 * sum|w| + nu2 * sum(w^2) over every layer's weights."""
+    reg = 0.0
+    for w in net.weights():
+        reg = reg + nu1 * w.abs().sum() + nu2 * w.square().sum()
+    return reg
+
+
+def sdne_loss(net, a_rows, l_block, alpha, beta, nu1, nu2):
+    """The reference objective on one batch (rows of A and the L block):
+    (loss, (l_2nd, l_1st))."""
+    y = net.encode(a_rows)
+    a_hat = net.decode(y)
+    b_ = torch.where(a_rows != 0, beta, 1.0)
+    l2nd = ((a_rows - a_hat) * b_).square().sum(-1).mean()
+    l1st = alpha * 2.0 * torch.trace(y.T @ l_block @ y) / a_rows.shape[0]
+    return l2nd + l1st + weight_penalty(net, nu1, nu2), (l2nd, l1st)
+
+
+def chunk_reconstruction(net, y_c, nbr_c, nbr_w_c, beta):
+    """sum(((A_c - A_hat_c) * b)^2) over a chunk of rows: A_c is rebuilt
+    from their padded neighbor ids (-1 pads) and weights by a scatter into
+    [C, V + 1] whose last column (the pads') is dropped."""
+    a_hat = net.decode(y_c)
+    C, V = a_hat.shape
+    cols = torch.where(nbr_c >= 0, nbr_c, V).long()
+    rows = torch.zeros((C, V + 1), device=a_hat.device).scatter_add_(
+        1, cols, nbr_w_c)[:, :V]
+    b_ = torch.where(rows != 0, beta, 1.0)
+    return ((rows - a_hat) * b_).square().sum(-1).sum()
+
+
+def sparse_sdne_loss(net, inputs, alpha, beta, nu1, nu2, row_chunk):
+    """The full-batch objective without [V, V]: (loss, (l_2nd, l_1st)).
+
+    inputs: (A, At, A_sym, deg_w, nbr, nbr_w), see `SDNE.sparse_inputs`.
+    Each chunk of `row_chunk` rows runs under a checkpoint: its [C, V]
+    reconstruction is recomputed in the backward pass, not kept.
+    """
+    A, At, A_sym, deg_w, nbr, nbr_w = inputs
+    V = A.shape[0]
+    y = net.encode_sparse(A, At)
+    l1st = alpha * 2.0 * laplacian_quadratic(A_sym, deg_w, y) / V
+    l2nd = 0.0
+    for lo in range(0, V, row_chunk):
+        hi = min(lo + row_chunk, V)
+        # the chunk draws nothing, so no RNG state to keep
+        l2nd = l2nd + checkpoint(
+            chunk_reconstruction, net, y[lo:hi], nbr[lo:hi], nbr_w[lo:hi],
+            beta, use_reentrant=False, preserve_rng_state=False)
+    l2nd = l2nd / V
+    return l2nd + l1st + weight_penalty(net, nu1, nu2), (l2nd, l1st)
+
+
+def adam_step(opt, loss_fn):
+    """One optimizer step on loss_fn()'s loss; returns the loss, detached
+    (no host sync)."""
+    opt.zero_grad(set_to_none=True)
+    loss, _ = loss_fn()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def minibatch_epoch(net, opt, A, L, perm, batch_size, alpha, beta, nu1,
+                    nu2):
+    """One epoch of the reference minibatch loop on a given permutation:
+    ceil(V / batch_size) steps over perm padded by its own head, each on
+    A[idx] and L[idx][:, idx]. Returns the steps' losses."""
+    V = A.shape[0]
+    steps = -(-V // batch_size)
+    pad = steps * batch_size - V
+    idx_all = torch.cat([perm, perm[:pad]]).view(steps, batch_size)
+    return [adam_step(opt, lambda: sdne_loss(
+        net, A[idx], L[idx][:, idx], alpha, beta, nu1, nu2))
+        for idx in idx_all]
+
+
+def _not_ported(**options):
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{name}= is not ported to graphembedding_tpu_torch")
+
+
+class SDNE:
+    def __init__(self, graph, hidden_size=None, alpha=1e-6, beta=5.0,
+                 nu1=1e-5, nu2=1e-4, seed=0, device="cuda"):
+        # [256, 128] by default, the reference's size
+        self.device = model_device(device)
+        self.graph = as_graph(graph)
+        self.hidden_size = list(hidden_size or [256, 128])
+        self.alpha = alpha
+        self.beta = beta
+        self.nu1 = nu1
+        self.nu2 = nu2
+        self.seed = seed
+        self.net = Autoencoder(self.graph.num_nodes, self.hidden_size,
+                               seed).to(self.device)
+        self.losses = None
+        self._embeddings: Optional[Dict] = None
+        # the dense [V, V] A and L, and the sparse trainer's inputs, are
+        # built on first use: train_sparse never builds A or L
+        self._A = None
+        self._L = None
+        self._sparse = None
+
+    @property
+    def A(self):
+        """Dense [V, V] adjacency with the reference's `A[src, dst] = w`
+        (an assignment). Built on first use."""
+        if self._A is None:
+            V = self.graph.num_nodes
+            src, dst, w = self.graph.edges()
+            A = np.zeros((V, V), dtype=np.float32)
+            A[src, dst] = w
+            self._A = torch.as_tensor(A, device=self.device)
+        return self._A
+
+    @property
+    def L(self):
+        """Dense Laplacian L = D - A_sym with duplicates summed (scipy COO
+        semantics); the transpose is added only for a directed graph, whose
+        edges() lists one direction. Built on first use."""
+        if self._L is None:
+            V = self.graph.num_nodes
+            src, dst, w = self.graph.edges()
+            A_sym = np.zeros((V, V), dtype=np.float32)
+            np.add.at(A_sym, (src, dst), w)
+            if self.graph.directed:
+                np.add.at(A_sym, (dst, src), w)
+            D = np.diag(A_sym.sum(axis=1))
+            self._L = torch.as_tensor((D - A_sym).astype(np.float32),
+                                      device=self.device)
+        return self._L
+
+    def sparse_inputs(self):
+        """(A, A^T, A_sym as CSR; deg_w; padded neighbor ids and weights)
+        on the model's device, built once."""
+        if self._sparse is None:
+            g, dev = self.graph, self.device
+            src, dst, w = g.edges()
+            A_sym = adjacency(g, sym=True, device=dev)
+            self._sparse = (csr_from_edges(src, dst, w, g.num_nodes, dev),
+                            csr_from_edges(dst, src, w, g.num_nodes, dev),
+                            A_sym, csr_row_sums(A_sym),
+                            *g.neighbor_matrix(dev))
+        return self._sparse
+
+    def _consts(self):
+        return self.alpha, self.beta, self.nu1, self.nu2
+
+    def _adam(self, learning_rate):
+        return torch.optim.Adam(self.net.parameters(), lr=learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8)
+
+    def train(self, batch_size=1024, epochs=1, initial_epoch=0, verbose=0,
+              learning_rate=1e-3, checkpoint_dir=None, checkpoint_every=0,
+              mesh=None):
+        """The reference signature: full batch when batch_size >= V, else
+        the minibatch loop. A fresh Adam each call, as in the JAX
+        package."""
+        del initial_epoch, verbose, checkpoint_every
+        _not_ported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+        V = self.graph.num_nodes
+        opt = self._adam(learning_rate)
+        A, L = self.A, self.L
+        consts = self._consts()
+        losses = []
+        with f32_matmul():
+            if batch_size >= V:
+                for _ in range(epochs):
+                    losses.append(adam_step(opt, lambda: sdne_loss(
+                        self.net, A, L, *consts)))
+            else:
+                gen = torch.Generator().manual_seed(self.seed + 2)
+                for _ in range(epochs):
+                    perm = torch.randperm(V, generator=gen).to(self.device)
+                    losses += minibatch_epoch(self.net, opt, A, L, perm,
+                                              batch_size, *consts)
+        return self._trained(losses)
+
+    def train_sparse(self, epochs=1, learning_rate=1e-3, row_chunk=512,
+                     checkpoint_dir=None, checkpoint_every=0, mesh=None):
+        """The full-batch objective without dense [V, V] matrices (see the
+        module docstring); one Adam step an epoch."""
+        del checkpoint_every
+        _not_ported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+        inputs = self.sparse_inputs()
+        opt = self._adam(learning_rate)
+        consts = self._consts()
+        with f32_matmul():
+            losses = [adam_step(opt, lambda: sparse_sdne_loss(
+                self.net, inputs, *consts, row_chunk))
+                for _ in range(epochs)]
+        return self._trained(losses)
+
+    def _trained(self, losses):
+        self.losses = torch.stack(losses) if losses else torch.zeros(
+            0, device=self.device)
+        self._embeddings = None
+        return self
+
+    def evaluate(self):
+        """The full-batch loss components on the current parameters."""
+        with torch.no_grad(), f32_matmul():
+            loss, (l2nd, l1st) = sdne_loss(self.net, self.A, self.L,
+                                           *self._consts())
+        return {"loss": float(loss), "l_2nd": float(l2nd),
+                "l_1st": float(l1st)}
+
+    def _encode_table(self):
+        """Encoder output for all nodes: the sparse first layer when the
+        dense adjacency was never built (after train_sparse)."""
+        with torch.no_grad(), f32_matmul():
+            if self._A is not None:
+                return self.net.encode(self._A)
+            return self.net.encode_sparse(*self.sparse_inputs()[:2])
+
+    def get_embeddings(self) -> Dict:
+        """{node_name: np.ndarray[hidden_size[-1]]}, the reference's
+        type."""
+        if self._embeddings is None:
+            y = self._encode_table().cpu().numpy()
+            names = self.graph.vocab.idx2node
+            self._embeddings = {names[i]: y[i]
+                                for i in range(self.graph.num_nodes)}
+        return self._embeddings
+
+    @property
+    def embedding_table(self) -> torch.Tensor:
+        """The [V, hidden_size[-1]] encoder output on the model's device."""
+        return self._encode_table()

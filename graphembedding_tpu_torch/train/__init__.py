@@ -1,6 +1,11 @@
+from graphembedding_tpu_torch.train.dense import (
+    DenseSGNSConfig,
+    DenseSGNSTrainer,
+)
 from graphembedding_tpu_torch.train.skipgram import (
     SkipGramConfig,
     SkipGramTrainer,
 )
 
-__all__ = ["SkipGramConfig", "SkipGramTrainer"]
+__all__ = ["DenseSGNSConfig", "DenseSGNSTrainer", "SkipGramConfig",
+           "SkipGramTrainer"]

@@ -30,7 +30,6 @@ at any V), `mesh=`/`sync_every=`, checkpoints and metrics logging.
 
 from __future__ import annotations
 
-import contextlib
 import heapq
 
 import numpy as np
@@ -46,6 +45,7 @@ from graphembedding_tpu_torch.train.skipgram import (
     prepare_epoch,
     window_geometry,
 )
+from graphembedding_tpu_torch.utils.precision import f32_matmul
 
 
 def build_huffman(counts: np.ndarray):
@@ -99,18 +99,6 @@ def build_huffman(counts: np.ndarray):
 # the row kernels a step runs (`ops.rows.RowOps`: gather, scatter-add), and
 # their plain versions, which the kernels are held against
 KERNELS, PLAIN = ROW_KERNELS, ROW_PLAIN
-
-
-@contextlib.contextmanager
-def f32_matmul():
-    """Full float32 matrix products (no TF32) inside the block; the
-    caller's setting comes back after it."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,

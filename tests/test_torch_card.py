@@ -13,15 +13,25 @@ run to run; K2 and K4 are bit-equal to the plain version's sequential sum
 on the CPU and to each other; four SGNS steps rtol=1e-4, atol=1e-6, four
 LINE steps and four HS steps rtol=1e-5, atol=1e-6 (the plain version on
 the card scatters with atomics); the multilayer walk is bit-identical from
-one seed.
+one seed. SDNE's three trainers and the dense expected-SGNS fit run no
+kernel of the port's; their steps on the card are bit-identical from run
+to run and agree with the same steps on the CPU: losses rtol=1e-5, and
+each parameter's update (value minus the shared initial value) within
+1e-3 of the CPU's in L2 norm. Adam's step is about lr * grad / (|grad| +
+eps), so an element whose gradient is near zero turns the last-bit
+differences of another summation order into a step of up to lr, and no
+elementwise bound holds. The co-occurrence matrix and LINE's dense
+adjacency equal the CPU's; its q = wdeg^0.75 (sums in another order)
+holds rtol=1e-6.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from graphembedding_tpu_torch.data import load_dataset
+from graphembedding_tpu_torch.data import load_dataset, synthetic_wiki
 from graphembedding_tpu_torch.graph import Graph
+from graphembedding_tpu_torch.models import SDNE
 from graphembedding_tpu_torch.models import line
 from graphembedding_tpu_torch.models import struc2vec as s2v
 from graphembedding_tpu_torch.models.line import LINE
@@ -41,6 +51,7 @@ from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads_plain,
 )
 from graphembedding_tpu_torch.ops.walk import simulate_walks, uniform_walks
+from graphembedding_tpu_torch.train import dense
 from graphembedding_tpu_torch.train import hsoftmax as hs
 from graphembedding_tpu_torch.train import skipgram as sg
 
@@ -449,3 +460,83 @@ def test_multilayer_walks_on_card(cuda):
     u, v = w[:, :-1].ravel(), w[:, 1:].ravel()
     assert (np.isin(u * V + v, keys) | ((u == v) & (deg[:, u] == 0).any(0))
             ).all()
+
+
+def assert_updates_close(got, want, init):
+    """Each tensor's update got - init within 1e-3 of want - init in L2
+    norm."""
+    for a, b, p0 in zip(got, want, init):
+        assert float((a - b).norm()) <= 1e-3 * float((b - p0).norm())
+
+
+def sdne_steps(mode, device):
+    """Three steps of one SDNE trainer on a 600-node graph; the initial
+    parameters and the permutation are drawn on the CPU, so every device
+    starts from the same ones. Returns (initial parameters, parameters,
+    losses) on the CPU."""
+    g = synthetic_wiki(num_nodes=600, num_classes=6, seed=5).graph
+    m = SDNE(g, hidden_size=[64, 32], device=device)
+    init = [p.detach().cpu().clone() for p in m.net.parameters()]
+    if mode == "full":
+        m.train(batch_size=1024, epochs=3)
+    elif mode == "minibatch":
+        m.train(batch_size=256, epochs=1)  # ceil(600 / 256) = 3 steps
+    else:
+        m.train_sparse(epochs=3, row_chunk=256)
+        assert m._A is None and m._L is None
+    return (init, [p.detach().cpu() for p in m.net.parameters()],
+            m.losses.cpu())
+
+
+@pytest.mark.parametrize("mode", ["full", "minibatch", "sparse"])
+def test_sdne_steps_on_card_match_cpu(cuda, mode):
+    init, want, want_loss = sdne_steps(mode, "cpu")
+    init_c, got, loss = sdne_steps(mode, cuda)
+    _, again, loss_again = sdne_steps(mode, cuda)
+    assert loss.shape == (3,)
+    for a, b in zip(got + [loss], again + [loss_again]):
+        assert torch.equal(a, b)
+    for a, b in zip(init, init_c):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(loss.numpy(), want_loss.numpy(), rtol=1e-5)
+    assert_updates_close(got, want, init)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_dense_fit_on_card_matches_cpu(cuda, tied):
+    """The co-occurrence of a Wiki-sized corpus equals the CPU's bit for
+    bit; five dense_fit steps are bit-identical from run to run, and their
+    loss (rtol=1e-5) and updates (1e-3 in L2 norm) agree with the CPU's."""
+    V = 2405
+    gen = torch.Generator().manual_seed(9)
+    walks = torch.randint(0, V, (19240, 10), generator=gen,
+                          dtype=torch.int32)
+    walks[::7, 6:] = -1
+    C = dense.cooccurrence(walks, V, 5)
+    C_card = dense.cooccurrence(walks.to(cuda), V, 5)
+    assert torch.equal(C_card.cpu(), C)
+    U0 = dense.initial_table(V, 128, 4, "cpu")
+
+    def fit(C, U0):
+        return dense.dense_fit(C, U0, 5, 0.75, 0.1, 0.9, 0.99, 1e-8,
+                               steps=5, tied=tied)
+
+    want = fit(C, U0)
+    got = [t.cpu() for t in fit(C_card, U0.to(cuda))]
+    again = [t.cpu() for t in fit(C_card, U0.to(cuda))]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=1e-5)
+    if tied:
+        assert not got[1].any()
+    assert_updates_close(got[:1 if tied else 2], want[:2],
+                         [U0, torch.zeros_like(U0)])
+
+
+def test_line_dense_inputs_on_card(cuda):
+    g = load_dataset("wiki").graph
+    (A, q), (A_cpu, q_cpu) = (line.dense_line_inputs(g, cuda),
+                              line.dense_line_inputs(g, "cpu"))
+    assert torch.equal(A.cpu(), A_cpu)
+    assert torch.equal(q, line.dense_line_inputs(g, cuda)[1])
+    np.testing.assert_allclose(q.cpu().numpy(), q_cpu.numpy(), rtol=1e-6)

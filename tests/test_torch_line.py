@@ -279,10 +279,13 @@ def test_line_hard_sbm_gate():
 
 def test_line_unsupported_options_raise():
     m = LINE(small_graph().graph, embedding_size=4, device="cpu")
-    for kw in ({"trainer": "dense"}, {"mesh": object()}, {"sync_every": 4},
+    for kw in ({"mesh": object()}, {"sync_every": 4},
                {"checkpoint_dir": "ckpt"}, {"checkpoint_every": 2}):
         with pytest.raises(NotImplementedError):
             m.train(epochs=1, **kw)
+    # trainer='dense' trains (tests/test_torch_dense.py)
+    m.train(trainer="dense", steps=2)
+    assert m.losses.shape == (1,) and torch.isfinite(m.losses).all()
     with pytest.raises(ValueError):
         m.train(trainer="block")
     with pytest.raises(ValueError):

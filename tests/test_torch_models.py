@@ -98,11 +98,15 @@ def test_deepwalk_hard_sbm_gate():
 def test_unsupported_options_raise():
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
     m = DeepWalk(ds.graph, walk_length=5, num_walks=2, device="cpu")
-    for kw in ({"trainer": "dense"}, {"mesh": object()},
+    for kw in ({"mesh": object()},
                {"checkpoint_dir": "ckpt"}, {"cap_mode": "sparse"},
                {"hs": 1, "metrics": object()}):
         with pytest.raises(NotImplementedError):
             m.train(embed_size=8, iter=1, **kw)
+    # trainer='dense' trains (tests/test_torch_dense.py); with hs it is
+    # invalid, as in the JAX package
+    with pytest.raises(ValueError):
+        m.train(embed_size=8, iter=1, trainer="dense", hs=1)
     for cls, kw in ((DeepWalk, {"mesh": object()}),
                     (DeepWalk, {"walk_exchange": "a2a"}),
                     (Node2Vec, {"mesh": object()})):
@@ -118,17 +122,20 @@ def test_unsupported_options_raise():
     assert n2v.losses.numel() > 0 and torch.isfinite(n2v.losses).all()
 
 
-@pytest.mark.parametrize("model", ["DeepWalk", "Node2Vec", "LINE"])
+@pytest.mark.parametrize("model", ["DeepWalk", "Node2Vec", "LINE", "SDNE"])
 def test_models_default_to_the_card(model):
     """Without device= a model runs on the CUDA card; where there is none
-    it raises rather than run on the CPU. Validation errors come first."""
+    it raises rather than run on the CPU. Validation errors come first
+    (SDNE's constructor validates nothing, as in the JAX package)."""
     import graphembedding_tpu_torch as pkg
 
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
     cls = getattr(pkg, model)
-    bad = {"order": "third"} if model == "LINE" else {"mesh": object()}
-    with pytest.raises((NotImplementedError, ValueError)):
-        cls(ds.graph, **bad)
+    bad = {"LINE": {"order": "third"}, "SDNE": None}.get(
+        model, {"mesh": object()})
+    if bad is not None:
+        with pytest.raises((NotImplementedError, ValueError)):
+            cls(ds.graph, **bad)
     if torch.cuda.is_available():
         assert cls(ds.graph).device.type == "cuda"
     else:
@@ -145,10 +152,15 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.models.node2vec, "
             "graphembedding_tpu_torch.models.struc2vec, "
             "graphembedding_tpu_torch.train.hsoftmax, "
+            "graphembedding_tpu_torch.models.sdne, "
+            "graphembedding_tpu_torch.ops.spmm, "
+            "graphembedding_tpu_torch.train.dense, "
+            "graphembedding_tpu_torch.parity.reference, "
             "graphembedding_tpu_torch.native, "
             "graphembedding_tpu_torch.ops.walk, "
             "graphembedding_tpu_torch.benchmarks.dma_gather, "
             "graphembedding_tpu_torch.benchmarks.scatter_bench, "
+            "graphembedding_tpu_torch.benchmarks.spmm_bench, "
             "graphembedding_tpu_torch.benchmarks.train_profile; "
             "assert 'jax' not in sys.modules; "
             "assert 'graphembedding_tpu' not in sys.modules")

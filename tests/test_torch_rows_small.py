@@ -158,11 +158,13 @@ def test_dma_gather_plan(n, w, b, sms):
         assert (stages, grid) == (2, min(n // b, 6 * sms))
 
 
-@pytest.mark.parametrize("module", ["dma_gather", "scatter_bench"])
+@pytest.mark.parametrize("module", ["dma_gather", "scatter_bench",
+                                    "spmm_bench"])
 def test_benchmarks_need_a_card(module):
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the benchmark runs for real")
-    args = {"dma_gather": ["--reps", "1"], "scatter_bench": ["--quick"]}
+    args = {"dma_gather": ["--reps", "1"], "scatter_bench": ["--quick"],
+            "spmm_bench": []}
     out = subprocess.run(
         [sys.executable, "-m", f"graphembedding_tpu_torch.benchmarks.{module}",
          *args[module]], cwd=ROOT, capture_output=True, text=True,
