@@ -102,6 +102,34 @@ Phases, one or more lines each:
      the busy share of one warm train.
 Phases 16-19 run none of K1-K5 (their products are cuBLAS calls and
 plain PyTorch); the run fails if any kernel's count moves in them.
+ 20. restartable training: each run below is cut by an exception raised
+     inside it (a metrics logger that raises on its n-th line, or a
+     wrapped chunk or step function), then trained again in a fresh model
+     from the same checkpoint_dir; the resumed tables must equal those of
+     an uninterrupted train bit for bit (torch.equal), and the resumed
+     run's K1-K4 launches must be the steps it still had to train times
+     the per-step counts of phases 5, 10 and 14. DeepWalk SGNS on Wiki (3
+     chunks, a checkpoint every chunk, cut after chunk 2), DeepWalk hs=1
+     (18 chunks, every 4, cut at chunk 7), LINE order 'all' (cut in order
+     'second''s second chunk), SDNE full batch, minibatch and train_sparse
+     (40 epochs, every 10, cut in epoch 20; held against the
+     uninterrupted train with the same cadence and the train without
+     checkpoints); prints each checkpoint's bytes and its save and
+     restore seconds;
+ 21. metrics: DeepWalk and DeepWalk hs=1 trains with a MetricsLogger write
+     3 and 18 JSONL lines whose (kind, epoch, step) are the JAX package's
+     (tests/test_torch_checkpoint.py holds them against it on the CPU),
+     and their tables equal a train without metrics bit for bit;
+ 22. LINE on BlogCatalog through graphembedding_tpu_torch.examples.
+     line_blogcatalog at its defaults (order 'all', 50 epochs, batch
+     1024, on the BlogCatalog-scale synthetic graph): K3 and K4 launched,
+     K1 and K2 never; train s, sampled edges/s, micro-F1 >= 0.95; then
+     `python -m graphembedding_tpu_torch.examples.deepwalk_wiki --json` in
+     a process of its own (micro-F1 >= 0.93 on the card);
+ 23. most_similar on a 1,000,000 x 128 table on the card (one matmul and
+     top-k) against the numpy path on the same table: the same top-10
+     names apart from ties within 1e-5, scores within 1e-5; warm ms a
+     query for both.
 
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
@@ -159,6 +187,10 @@ SDNE_LOSS_RTOL, SDNE_UPDATE_RTOL = 1e-5, 1e-3
 # train_sparse at V = 100,000: parameters, Adam state and gradients take
 # about 0.8 GB, one chunk's [512, V] tensors about 0.2 GB each
 SDNE_SPARSE_MAX_BYTES = 8 << 30
+# LINE order 'all' on the BlogCatalog-scale graph (the example's defaults):
+# the JAX package gives 0.9995 on the CPU (seed 0, tools/reference_f1.py);
+# the port's random streams differ from its
+BC_MIN_MICRO_F1 = 0.95
 DEVICE = "cuda"
 
 
@@ -489,6 +521,9 @@ def main():
     struc2vec_phase(dev, card)
     sdne_phases(dev, card)
     dense_phase(dev, card)
+    restart_phases(dev, card)
+    blogcatalog_phase(dev, card)
+    simquery_phase(dev, card)
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
@@ -1358,6 +1393,366 @@ def dense_phase(dev, card):
               f"{res['macro']:.4f} [{card}]", flush=True)
         if not res["micro"] >= gate:
             fail(f"{name} dense micro-F1 {res['micro']:.4f} < {gate}")
+
+
+class Interrupt(Exception):
+    """Raised inside a train to cut it, as a lost machine would."""
+
+
+def kernel_counts():
+    """The wrappers of K1-K4 by name."""
+    from graphembedding_tpu_torch.ops.rows import (
+        gather_rows, scatter_add_rows, scatter_add_small)
+    from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
+
+    return {k.__name__: k for k in (sgns_block_grads, scatter_add_rows,
+                                    gather_rows, scatter_add_small)}
+
+
+def counted(fn):
+    """(fn(), {kernel: launches in fn}) over K1-K4, counts set to 0 first."""
+    kernels = kernel_counts()
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def checkpoint_timer():
+    """Wraps `utils.checkpoint`'s save and load (and SDNE's reference to
+    the save) to record each call's seconds (lists "save" and "load");
+    returns (times, undo)."""
+    from graphembedding_tpu_torch.models import sdne as sdne_mod
+    from graphembedding_tpu_torch.utils import checkpoint as ck
+
+    times = {"save": [], "load": []}
+    save, load = ck.save_state, ck.load_state
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    ck.save_state, ck.load_state = timed(save, "save"), timed(load, "load")
+    sdne_mod.save_state = ck.save_state
+
+    def undo():
+        ck.save_state, ck.load_state = save, load
+        sdne_mod.save_state = save
+    return times, undo
+
+
+def restart_phases(dev, card):
+    """Phases 20-21: interrupted and resumed trains bit-identical to
+    uninterrupted ones, with the kernels launched for the steps that
+    remained; the metrics lines."""
+    import tempfile
+
+    import torch
+
+    from graphembedding_tpu_torch import LINE, SDNE, DeepWalk
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.models import line as line_mod
+    from graphembedding_tpu_torch.models import sdne as sdne_mod
+    from graphembedding_tpu_torch.utils import checkpoint as ck
+    from graphembedding_tpu_torch.utils.metrics import MetricsLogger
+
+    class StopAt(MetricsLogger):
+        def __init__(self, n, path=None):
+            super().__init__(path, quiet=True)
+            self.n, self.lines = n, []
+
+        def log(self, **fields):
+            super().log(**fields)
+            self.lines.append((fields["kind"], fields["epoch"],
+                               fields["step"]))
+            if len(self.lines) == self.n:
+                raise Interrupt
+
+    ds = load_dataset("wiki")
+    tmp = tempfile.mkdtemp(prefix="ge_ckpt_")
+
+    def report(what, d, times, resumed_steps, launches, extra=""):
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(d) for f in fs)
+        print(f"{what}: resumed train bit-identical to the uninterrupted "
+              f"one; {resumed_steps} steps resumed, launches {launches}; "
+              f"checkpoint {nbytes} bytes, {len(times['save'])} saves "
+              f"{min(times['save']):.4f}-{max(times['save']):.4f} s, "
+              f"restore {times['load'][-1]:.4f} s{extra} [{card}]",
+              flush=True)
+
+    # 20. DeepWalk SGNS (3 chunks, a checkpoint every chunk, cut after
+    # chunk 2) and hs=1 (18 chunks, every 4, cut at chunk 7)
+    walk_models = {}
+    for hs, every, stop, per_step in ((0, 1, 2, {
+            "sgns_block_grads": 1, "scatter_add_rows": 2, "gather_rows": 2,
+            "scatter_add_small": 0}), (1, 4, 7, {
+            "sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 2,
+            "scatter_add_small": 2})):
+        kw = dict(embed_size=128, window_size=5, iter=3, hs=hs)
+        want = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+        want.train(**kw)
+        walk_models[hs] = want
+        d = os.path.join(tmp, f"deepwalk_hs{hs}")
+        times, undo = checkpoint_timer()
+        m = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+        try:
+            m.train(checkpoint_dir=d, checkpoint_every=every,
+                    metrics=StopAt(stop), **kw)
+            fail(f"DeepWalk hs={hs}: the interrupt did not fire")
+        except Interrupt:
+            pass
+        saved = ck.load_state(d)["step"]
+        m = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+        _, launches = counted(lambda: m.train(
+            checkpoint_dir=d, checkpoint_every=every, **kw))
+        torch.cuda.synchronize()
+        undo()
+        steps = want.losses.shape[0] - saved
+        if m.losses.shape[0] != steps or not (
+                torch.equal(m.w_in, want.w_in)
+                and torch.equal(m.w_out, want.w_out)):
+            fail(f"DeepWalk hs={hs} resumed from step {saved}: "
+                 f"{m.losses.shape[0]} steps, want {steps}, or tables "
+                 f"differ from the uninterrupted train")
+        expect = {k: n * steps for k, n in per_step.items()}
+        if launches != expect:
+            fail(f"DeepWalk hs={hs} resumed: launches {launches}, want "
+                 f"{expect}")
+        report(f"DeepWalk hs={hs} on Wiki cut after chunk {stop} (a "
+               f"checkpoint every {every}, resumed from step {saved} of "
+               f"{want.losses.shape[0]})", d, times, steps, launches)
+
+    # LINE order 'all': 2 chunks an order, cut inside order 'second'
+    B = 1024
+    want = LINE(ds.graph, embedding_size=128, order="all", device=dev)
+    want.train(batch_size=B, epochs=50)
+    d = os.path.join(tmp, "line")
+    chunk, calls = line_mod.line_train_chunk, []
+
+    def cut(*a, **k):
+        calls.append(1)
+        if len(calls) == 4:
+            raise Interrupt
+        return chunk(*a, **k)
+
+    times, undo = checkpoint_timer()
+    line_mod.line_train_chunk = cut
+    try:
+        LINE(ds.graph, embedding_size=128, order="all", device=dev).train(
+            batch_size=B, epochs=50, checkpoint_dir=d, checkpoint_every=1)
+        fail("LINE: the interrupt did not fire")
+    except Interrupt:
+        pass
+    finally:
+        line_mod.line_train_chunk = chunk
+    m = LINE(ds.graph, embedding_size=128, order="all", device=dev)
+    _, launches = counted(lambda: m.train(
+        batch_size=B, epochs=50, checkpoint_dir=d, checkpoint_every=1))
+    torch.cuda.synchronize()
+    undo()
+    steps = m.losses.shape[0]
+    expect = {"sgns_block_grads": 0, "scatter_add_rows": 0,
+              "gather_rows": 2 * steps, "scatter_add_small": 2 * steps}
+    if not (steps == line_mod.CHUNK_STEPS
+            and torch.equal(m.embedding_table, want.embedding_table)
+            and torch.equal(m.context_emb, want.context_emb)):
+        fail(f"LINE resumed: {steps} steps, want {line_mod.CHUNK_STEPS}, "
+             f"or tables differ from the uninterrupted train")
+    if launches != expect:
+        fail(f"LINE resumed: launches {launches}, want {expect}")
+    report("LINE order 'all' on Wiki cut in order 'second''s chunk 2 (a "
+           "checkpoint every chunk)", d, times, steps, launches)
+
+    # SDNE: 40 epochs, a checkpoint every 10, cut in epoch 20
+    trains = {
+        "full batch": (lambda m, **k: m.train(batch_size=3000, epochs=40,
+                                              **k), 1),
+        "minibatch": (lambda m, **k: m.train(batch_size=1024, epochs=40,
+                                             **k), 3),
+        "sparse": (lambda m, **k: m.train_sparse(epochs=40, row_chunk=512,
+                                                 **k), 1),
+    }
+    step_fn = sdne_mod.adam_step
+
+    def params(m):
+        return [p.detach().clone() for p in m.net.parameters()]
+
+    for mode, (train, per_epoch) in trains.items():
+        def sdne_run():
+            plain = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
+            train(plain)
+            d = os.path.join(tmp, f"sdne_{mode.replace(' ', '_')}")
+            cadence = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
+            train(cadence, checkpoint_dir=d + "_full", checkpoint_every=10)
+            calls = []
+
+            def cut_step(*a, **k):
+                calls.append(1)
+                if len(calls) == 19 * per_epoch + 1:
+                    raise Interrupt
+                return step_fn(*a, **k)
+
+            times, undo = checkpoint_timer()
+            sdne_mod.adam_step = cut_step
+            try:
+                train(SDNE(ds.graph, hidden_size=[256, 128], device=dev),
+                      checkpoint_dir=d, checkpoint_every=10)
+                fail(f"SDNE {mode}: the interrupt did not fire")
+            except Interrupt:
+                pass
+            finally:
+                sdne_mod.adam_step = step_fn
+            m = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
+            train(m, checkpoint_dir=d, checkpoint_every=10)
+            torch.cuda.synchronize()
+            undo()
+            return plain, cadence, m, d, times
+
+        plain, cadence, m, d, times = no_kernel_launched(
+            f"SDNE {mode} resume", sdne_run)
+        got = params(m)
+        if not (all(torch.equal(a, b) for a, b in zip(got, params(cadence)))
+                and torch.equal(m.losses, cadence.losses[10 * per_epoch:])):
+            fail(f"SDNE {mode}: the resumed train differs from the "
+                 f"uninterrupted one with the same cadence")
+        same_plain = all(torch.equal(a, b)
+                         for a, b in zip(got, params(plain)))
+        if not same_plain:
+            fail(f"SDNE {mode}: the resumed train differs from the train "
+                 f"without checkpoints")
+        report(f"SDNE {mode} on Wiki cut in epoch 20 of 40 (a checkpoint "
+               f"every 10, resumed from epoch 10)", d, times,
+               m.losses.shape[0],
+               {k: 0 for k in kernel_counts()},
+               "; also bit-identical to the train without checkpoints")
+
+    # 21. metrics: one line a chunk, no bit of the train moved
+    for hs, n_lines in ((0, 3), (1, 18)):
+        path = os.path.join(tmp, f"metrics_hs{hs}.jsonl")
+        want = walk_models[hs]
+        m = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+        with StopAt(None, path) as logger:
+            m.train(embed_size=128, window_size=5, iter=3, hs=hs,
+                    metrics=logger)
+        recs = [json.loads(x) for x in open(path).read().splitlines()]
+        chunks = 64 * np.arange(1, n_lines + 1)
+        expect = [("hs_chunk" if hs else "sgns_chunk",
+                   int(c - 1) // (64 * n_lines // 3), int(c))
+                  for c in chunks]
+        got = [(r["kind"], r["epoch"], r["step"]) for r in recs]
+        if got != expect or not all(np.isfinite(r["loss"]) for r in recs):
+            fail(f"metrics hs={hs}: lines {got}, want {expect}")
+        if not (torch.equal(m.w_in, want.w_in)
+                and torch.equal(m.w_out, want.w_out)):
+            fail(f"metrics hs={hs}: the tables differ from a train without "
+                 f"metrics")
+        print(f"metrics hs={hs}: {len(recs)} JSONL lines (kind, epoch, step "
+              f"as the JAX package logs them), last {recs[-1]}; tables "
+              f"bit-identical to the train without metrics", flush=True)
+
+
+def blogcatalog_phase(dev, card):
+    """Phase 22: LINE on BlogCatalog through the example entry point, and
+    the DeepWalk example as a module in a process of its own."""
+    import torch
+
+    from graphembedding_tpu_torch.examples import line_blogcatalog
+
+    def run():
+        torch.cuda.synchronize()
+        return line_blogcatalog.main([])
+
+    (model, res, train_s), launches = counted(run)
+    print(f"LINE BlogCatalog path launches: {launches}", flush=True)
+    if launches["sgns_block_grads"] or launches["scatter_add_rows"]:
+        fail(f"LINE on BlogCatalog launched K1 or K2: {launches}")
+    if not (launches["gather_rows"] and launches["scatter_add_small"]):
+        fail(f"LINE on BlogCatalog: K3 or K4 never launched: {launches}")
+    g = model.graph
+    table = model.embedding_table
+    if (tuple(table.shape) != (g.num_nodes, 256)
+            or not torch.isfinite(table).all()
+            or not torch.isfinite(model.losses).all()):
+        fail(f"LINE on BlogCatalog: embeddings {tuple(table.shape)} or "
+             f"losses non-finite")
+    steps = model.sampled_edges // 1024
+    print(f"LINE order 'all' on BlogCatalog (V={g.num_nodes}, "
+          f"E={g.num_edges}): train {train_s:.4f} s ({steps} steps of "
+          f"1024 edges over both orders), sampled edges/s "
+          f"{model.sampled_edges / train_s:.4e} [{card}]", flush=True)
+    print(f"LINE BlogCatalog micro-F1: {res['micro']:.4f}, macro-F1: "
+          f"{res['macro']:.4f} (gate {BC_MIN_MICRO_F1}) [{card}]",
+          flush=True)
+    if not res["micro"] >= BC_MIN_MICRO_F1:
+        fail(f"LINE BlogCatalog micro-F1 {res['micro']:.4f} < "
+             f"{BC_MIN_MICRO_F1}")
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "graphembedding_tpu_torch.examples."
+         "deepwalk_wiki", "--json"], cwd=HERE, capture_output=True,
+        text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"python -m ...examples.deepwalk_wiki failed: "
+             f"{out.stderr[-2000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"python -m graphembedding_tpu_torch.examples.deepwalk_wiki "
+          f"--json: {line} ({time.perf_counter() - t0:.1f} s with the "
+          f"interpreter's start) [{card}]", flush=True)
+    if line["device"] != "cuda" or not line["micro"] >= MIN_MICRO_F1:
+        fail(f"deepwalk_wiki example: {line}")
+
+
+def simquery_phase(dev, card):
+    """Phase 23: most_similar on a 1,000,000 x 128 table on the card
+    against the numpy path on the same table."""
+    import torch
+
+    from graphembedding_tpu_torch.utils import simquery
+
+    V, D = 1_000_000, 128
+    rng = np.random.default_rng(23)
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    names = [f"v{i}" for i in range(V)]
+    queries = [dict(node=f"v{i}") for i in (0, 4321, 999_999)] + [
+        dict(vector=table[77] + rng.standard_normal(D, dtype=np.float32))]
+
+    def query_all():
+        return [simquery.most_similar((names, table), topn=10, **q)
+                for q in queries]
+
+    t0 = time.perf_counter()
+    got = query_all()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    dev_s = min(timed_walks(query_all)[1] for _ in range(3))
+    threshold = simquery._DEVICE_MIN_ROWS
+    simquery._DEVICE_MIN_ROWS = V + 1
+    try:
+        want = query_all()
+        np_s = min(timed_walks(query_all)[1] for _ in range(2))
+    finally:
+        simquery._DEVICE_MIN_ROWS = threshold
+    err = 0.0
+    for q, g, w in zip(queries, got, want):
+        gs, ws = [s for _, s in g], [s for _, s in w]
+        err = max(err, float(np.abs(np.subtract(gs, ws)).max()))
+        cut = w[-1][1]
+        differ = {n for n, _ in g} ^ {n for n, _ in w}
+        ties = {n for n, s in g + w if abs(s - cut) <= 1e-5}
+        if len(g) != 10 or err > 1e-5 or not differ <= ties:
+            fail(f"most_similar {q}: card {g} against numpy {w}")
+    n = len(queries)
+    print(f"most_similar on [{V}, {D}] (pair form, {4 * V * D} bytes): "
+          f"top-10 names equal the numpy path's apart from ties, scores "
+          f"within {err:.2e}; card {1e3 * dev_s / n:.2f} ms a query warm "
+          f"(the first {n} queries {cold_s:.3f} s with the upload), numpy "
+          f"{1e3 * np_s / n:.2f} ms a query [{card}]", flush=True)
 
 
 if __name__ == "__main__":

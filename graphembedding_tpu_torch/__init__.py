@@ -40,6 +40,19 @@ expected SGNS (trainer='dense', also LINE's):
     sdne.train_sparse(epochs=40, row_chunk=512)   # never builds [V, V]
     embeddings = sdne.get_embeddings()   # {node: np.ndarray[128]}
 
+Every trainer but the dense one takes checkpoint_dir= / checkpoint_every=
+and resumes from the checkpoint it finds there, bit-identical to an
+uninterrupted train; the walk models' trainers take metrics= (a
+`utils.metrics.MetricsLogger`):
+
+    dw.train(embed_size=128, iter=3, checkpoint_dir="ckpt/dw",
+             checkpoint_every=1)   # run again after a crash: it resumes
+
+`utils` has the embedding I/O (word2vec text, npz), similarity queries
+(`most_similar`, `similarity`) and validation; `walker` the reference's
+`RandomWalker` and `BiasedWalker`; `examples` the command-line entry points
+(`python -m graphembedding_tpu_torch.examples.deepwalk_wiki --json`).
+
 This package imports torch, numpy and scipy, never jax; Struc2Vec's
 context graph also builds a C++ library with g++ at first use.
 """
@@ -52,8 +65,9 @@ from graphembedding_tpu_torch.models import (
     Node2Vec,
     Struc2Vec,
 )
+from graphembedding_tpu_torch.walker import BiasedWalker, RandomWalker
 
 __version__ = "0.1.0"
 
 __all__ = ["Graph", "DeepWalk", "LINE", "Node2Vec", "SDNE", "Struc2Vec",
-           "__version__"]
+           "RandomWalker", "BiasedWalker", "__version__"]

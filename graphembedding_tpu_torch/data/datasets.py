@@ -1,16 +1,18 @@
-"""Wiki and flight dataset loaders and their synthetic stand-ins (numpy
-only).
+"""Wiki, flight and BlogCatalog dataset loaders and their synthetic
+stand-ins (numpy only).
 
-Counterpart of `graphembedding_tpu/data/datasets.py` for Wiki and the
-flight networks. `load_dataset('wiki')` reads the reference's files
-(`wiki/Wiki_edgelist.txt`, `wiki/wiki_labels.txt`) and
-`load_dataset('flight-<region>')` the region's
+Counterpart of `graphembedding_tpu/data/datasets.py`. `load_dataset('wiki')`
+reads the reference's files (`wiki/Wiki_edgelist.txt`,
+`wiki/wiki_labels.txt`), `load_dataset('flight-<region>')` the region's
 (`flight/<region>-airports.edgelist`, `flight/labels-<region>-airports.txt`)
-from the directory named by `GE_TPU_REFERENCE_ROOT` (its `data/` folder) or
-from this package's `data/files/`; otherwise each generates its synthetic
-graph at the real node count. Nothing is downloaded. The generators draw
-from numpy's `default_rng` in the same order as the JAX package's, so a
-seed gives the same CSR and labels in both packages.
+and `load_dataset('blogcatalog')` BlogCatalog's
+(`blogcatalog/bc_edgelist.txt` or `edges.csv`, `bc_labels.txt` or
+`group-edges.csv`) from the directory named by `GE_TPU_REFERENCE_ROOT` (its
+`data/` folder) or from this package's `data/files/`; otherwise each
+generates its synthetic graph at the real node count. Nothing is
+downloaded. The generators draw from numpy's `default_rng` in the same
+order as the JAX package's, so a seed gives the same CSR and labels in both
+packages.
 """
 
 from __future__ import annotations
@@ -167,6 +169,14 @@ def synthetic_flight_hard(num_nodes: int = 200, seed: int = 11,
                    synthetic=True)
 
 
+def synthetic_blogcatalog(seed: int = 13) -> Dataset:
+    """BlogCatalog-scale SBM (10,312 nodes, ~333k edges, 39 classes)."""
+    ds = synthetic_wiki(num_nodes=10312, num_classes=39, avg_degree=32.0,
+                        p_in=0.7, seed=seed)
+    ds.name = "blogcatalog-synthetic"
+    return ds
+
+
 # the regions' real node counts, which their synthetic stand-ins take
 FLIGHT_SIZES = {"brazil": 131, "europe": 399, "usa": 1190}
 
@@ -175,7 +185,7 @@ def load_dataset(name: str) -> Dataset:
     """Load a named dataset: real files if present, synthetic otherwise.
 
     Names: 'wiki', 'flight-brazil', 'flight-europe', 'flight-usa' ('flight'
-    alone is Brazil). Other names raise NotImplementedError.
+    alone is Brazil), 'blogcatalog'. Other names raise ValueError.
     """
     name = name.lower()
     if name == "wiki":
@@ -193,5 +203,12 @@ def load_dataset(name: str) -> Dataset:
             g = Graph.from_edgelist(edges, directed=False, weighted=False)
             return Dataset(name, g, _labels_from_file(labels))
         return synthetic_flight(num_nodes=FLIGHT_SIZES.get(region, 131))
-    raise NotImplementedError(
-        f"dataset {name!r} is not ported to graphembedding_tpu_torch")
+    if name == "blogcatalog":
+        edges = _find("blogcatalog/bc_edgelist.txt", "blogcatalog/edges.csv")
+        labels = _find("blogcatalog/bc_labels.txt",
+                       "blogcatalog/group-edges.csv")
+        if edges and labels:
+            g = Graph.from_edgelist(edges, directed=False)
+            return Dataset("blogcatalog", g, _labels_from_file(labels))
+        return synthetic_blogcatalog()
+    raise ValueError(f"unknown dataset {name!r}")

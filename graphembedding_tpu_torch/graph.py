@@ -18,6 +18,10 @@ import numpy as np
 import torch
 
 from graphembedding_tpu_torch.ops.alias import build_row_alias
+from graphembedding_tpu_torch.utils.debug import (
+    validate_graph,
+    validation_enabled,
+)
 from graphembedding_tpu_torch.utils.vocab import IdentityVocab, Vocab
 
 
@@ -105,6 +109,11 @@ class Graph:
         self.degree = counts.astype(np.int32)
         self.max_degree = int(counts.max(initial=0))
         self._views = {}  # (name, device or None) -> view, see _view
+
+        # opt-in sanitizer: every constructed graph is invariant-checked
+        # when GE_TPU_VALIDATE is set
+        if validation_enabled():
+            validate_graph(self)
 
     @classmethod
     def from_nx(cls, graph) -> "Graph":

@@ -2,7 +2,10 @@
 
 Counterpart of `graphembedding_tpu/models/base.py`: the walk-block SGNS
 trainer, the hierarchical-softmax trainer with `hs=1`, or the closed-form
-expected-SGNS fit with `trainer='dense'`. Models accept a
+expected-SGNS fit with `trainer='dense'`. The first two take
+`checkpoint_dir=` / `checkpoint_every=` (resume from the checkpoint in the
+directory, bit-identical to an uninterrupted train) and `metrics=` (a
+`utils.metrics.MetricsLogger`, one line a chunk). Models accept a
 networkx graph or a `graphembedding_tpu_torch.Graph`, and run on the
 `device` they are given: the CUDA card by default, the CPU only when the
 caller asks for it.
@@ -68,22 +71,21 @@ class WalkEmbeddingModel:
                       block_walks=None, k_shared=64, sample=1e-3, mesh=None,
                       hs=0, trainer="block", checkpoint_dir=None,
                       checkpoint_every=0, metrics=None, **kwargs):
-        del workers, checkpoint_every
+        del workers
         if trainer == "dense":
             return self._fit_dense(embed_size, window_size, negative, hs,
                                    mesh, checkpoint_dir, metrics, kwargs)
         if trainer != "block":
             raise ValueError(f"unknown trainer {trainer!r}")
-        unsupported = {"mesh": mesh, "checkpoint_dir": checkpoint_dir,
-                       "metrics": metrics}
-        for name, value in unsupported.items():
-            if value:
-                raise NotImplementedError(
-                    f"{name}= is not ported to graphembedding_tpu_torch")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= is not ported to graphembedding_tpu_torch")
         for name in _NOT_PORTED:
             if name in kwargs:
                 raise NotImplementedError(
                     f"{name}= is not ported to graphembedding_tpu_torch")
+        fit_kw = dict(checkpoint_dir=checkpoint_dir,
+                      checkpoint_every=checkpoint_every, metrics=metrics)
         if hs:
             # as in the JAX package: window, epochs and seed kwargs win
             # over the explicit arguments, and seed + 1 seeds the fit
@@ -93,7 +95,7 @@ class WalkEmbeddingModel:
                             epochs=kwargs.get("epochs", iter), alpha=alpha,
                             min_alpha=min_alpha, sample=sample, seed=seed)
             self.w_in, self.w_out, self.losses = hst.fit(
-                self.walks, self.graph.num_nodes, seed=seed + 1)
+                self.walks, self.graph.num_nodes, seed=seed + 1, **fit_kw)
             self.trained_pairs = hst.trained_pairs_
             self._embeddings = None
             return self
@@ -111,7 +113,7 @@ class WalkEmbeddingModel:
         cfg = SkipGramConfig(**cfg_kw)
         sgns = SkipGramTrainer(cfg)
         w_cat, self.losses = sgns.fit(self.walks, self.graph.num_nodes,
-                                      seed=cfg.seed + 1)
+                                      seed=cfg.seed + 1, **fit_kw)
         D = cfg.embed_size
         self.w_in, self.w_out = w_cat[:, :D], w_cat[:, D:]
         self.trained_pairs = sgns.trained_pairs_

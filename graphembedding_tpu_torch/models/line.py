@@ -27,13 +27,16 @@ rank-1 wdeg^0.75 expectation; order 'first' trains one tied table, order
 'second' an untied pair. Its initial tables come from CPU generators, one
 stream an order, as the sampled trainer's draws do.
 
-Not ported: `mesh=`, `sync_every=`, `checkpoint_dir=`/`checkpoint_every`;
-each raises NotImplementedError with the sampled trainer (the dense one
-ignores them, as in the JAX package).
+The sampled trainer checkpoints and resumes each order in a subdirectory
+of `checkpoint_dir` (`line_train`), bit-identical to an uninterrupted run.
+
+Not ported: `mesh=` and `sync_every=`; each raises NotImplementedError with
+the sampled trainer (the dense one ignores them, as in the JAX package).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,9 +53,12 @@ from graphembedding_tpu_torch.train.dense import (
     initial_table,
 )
 from graphembedding_tpu_torch.train.skipgram import inverse_cdf_table
+from graphembedding_tpu_torch.utils.checkpoint import maybe_save, try_restore
 
 # steps a chunk of draws covers; a run is whole chunks, as in the JAX package
 CHUNK_STEPS = 512
+# what a checkpoint of `line_train` holds
+LINE_STATE_KEYS = ("emb", "ctx", "chunk", "rng")
 
 
 # the row kernels a step runs (gather, scatter-add), and their plain
@@ -180,13 +186,32 @@ def line_train_chunk(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
 
 def line_train(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
                neg_table, generator, lr0, *, n_steps, batch_size, negative,
-               k_shared=0, update_cap=8.0, ops=KERNELS):
+               k_shared=0, update_cap=8.0, ops=KERNELS, checkpoint_dir=None,
+               checkpoint_every=0):
     """A full run as ceil(n_steps / CHUNK_STEPS) whole chunks, as the JAX
     package runs it: steps past n_steps train at the floor learning rate
-    lr0 * 1e-4. Returns (emb, ctx, losses [chunks * CHUNK_STEPS])."""
+    lr0 * 1e-4. Returns (emb, ctx, losses [CHUNK_STEPS * chunks this call
+    ran]).
+
+    checkpoint_dir / checkpoint_every: save (emb, ctx, chunk) and the
+    generator's state after every `checkpoint_every`-th chunk of the run,
+    and resume from the checkpoint in `checkpoint_dir` when there is one,
+    with the chunks it already holds skipped: a resumed run equals an
+    uninterrupted one bit for bit. Order 'first' has no context table, and
+    its checkpoint holds ctx None (the JAX package's holds a [1, D]
+    placeholder).
+    """
     n_chunks = max((n_steps + CHUNK_STEPS - 1) // CHUNK_STEPS, 1)
+    resume_chunk = 0
+    state = (try_restore(checkpoint_dir, LINE_STATE_KEYS)
+             if checkpoint_dir else None)
+    if state is not None:
+        emb = state["emb"].to(emb.device)
+        ctx = None if state["ctx"] is None else state["ctx"].to(emb.device)
+        generator.set_state(state["rng"])
+        resume_chunk = int(state["chunk"])
     losses = []
-    for c in range(n_chunks):
+    for c in range(resume_chunk, n_chunks):
         emb, ctx, lc = line_train_chunk(
             emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
             neg_table, generator, lr0, c * CHUNK_STEPS, float(n_steps),
@@ -194,6 +219,11 @@ def line_train(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
             negative=negative, k_shared=k_shared, update_cap=update_cap,
             ops=ops)
         losses.append(lc)
+        maybe_save(checkpoint_dir, checkpoint_every, c + 1,
+                   lambda: {"emb": emb, "ctx": ctx, "chunk": c + 1,
+                            "rng": generator.get_state()})
+    if not losses:  # fully resumed past the end
+        return emb, ctx, torch.zeros(0, device=emb.device)
     return emb, ctx, torch.cat(losses)
 
 
@@ -253,18 +283,17 @@ class LINE:
               sync_every=None, trainer="sampled", steps=300, lr=0.1):
         """The reference signature. The sampled trainer runs
         round(epochs * times * E / batch_size) steps per order, as whole
-        chunks of CHUNK_STEPS; trainer='dense' runs `steps` Adam steps at
-        `lr` on the closed-form objective."""
+        chunks of CHUNK_STEPS, with checkpoint_dir / checkpoint_every
+        (`line_train`) in one subdirectory an order, 'first' and 'second';
+        trainer='dense' runs `steps` Adam steps at `lr` on the closed-form
+        objective."""
         del verbose
         if trainer == "dense":
             return self._train_dense(steps=steps, lr=lr)
         if trainer != "sampled":
             raise ValueError(f"unknown trainer {trainer!r}")
-        unsupported = {"mesh": mesh, "sync_every": sync_every,
-                       "checkpoint_dir": checkpoint_dir,
-                       "checkpoint_every": checkpoint_every}
-        for name, value in unsupported.items():
-            if value:
+        for name, value in (("mesh", mesh), ("sync_every", sync_every)):
+            if value is not None:
                 raise NotImplementedError(
                     f"{name}= is not ported to graphembedding_tpu_torch")
         g = self.graph
@@ -273,21 +302,28 @@ class LINE:
         kw = dict(n_steps=n_steps, batch_size=batch_size,
                   negative=self.negative_ratio,
                   k_shared=min(self.k_shared, g.num_nodes),
-                  update_cap=self.update_cap)
+                  update_cap=self.update_cap,
+                  checkpoint_every=checkpoint_every)
         edges = (self._edge_src, self._edge_dst, self._edge_accept,
                  self._edge_alias, self._neg_table)
+
+        def order_dir(order):
+            return (os.path.join(checkpoint_dir, order) if checkpoint_dir
+                    else None)
+
         self.sampled_edges = 0
         # each order draws from a stream of its own, as the JAX package
         # folds the order into its key
         if self.order in ("first", "all"):
             self.first_emb, _, self.losses = line_train(
                 self.first_emb, None, *edges, self._generator(0), initial_lr,
-                **kw)
+                checkpoint_dir=order_dir("first"), **kw)
             self.sampled_edges += self.losses.shape[0] * batch_size
         if self.order in ("second", "all"):
             self.second_emb, self.context_emb, self.losses = line_train(
                 self.second_emb, self.context_emb, *edges,
-                self._generator(1), initial_lr, **kw)
+                self._generator(1), initial_lr,
+                checkpoint_dir=order_dir("second"), **kw)
             self.sampled_edges += self.losses.shape[0] * batch_size
         self._embeddings = None
         return self

@@ -31,7 +31,9 @@ orientation. Every product runs in full float32 (matmul precision
 "highest"); TF32 would change the results. On the card, training is
 bit-identical from run to run.
 
-Not ported: `mesh=` and `checkpoint_dir=` raise NotImplementedError.
+The three trainers checkpoint and resume (`SDNE._run_checkpointed`),
+bit-identical to an uninterrupted train. Not ported: `mesh=` raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,7 +53,12 @@ from graphembedding_tpu_torch.ops.spmm import (
     laplacian_quadratic,
     spmm,
 )
+from graphembedding_tpu_torch.utils.checkpoint import save_state, try_restore
 from graphembedding_tpu_torch.utils.precision import f32_matmul
+
+# what a checkpoint of an SDNE trainer holds (the minibatch loop's also its
+# permutation generator's state, "rng")
+SDNE_STATE_KEYS = ("params", "opt_state", "epoch")
 
 
 class Dense(nn.Module):
@@ -275,42 +282,89 @@ class SDNE:
               learning_rate=1e-3, checkpoint_dir=None, checkpoint_every=0,
               mesh=None):
         """The reference signature: full batch when batch_size >= V, else
-        the minibatch loop. A fresh Adam each call, as in the JAX
-        package."""
-        del initial_epoch, verbose, checkpoint_every
-        _not_ported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+        the minibatch loop. A fresh Adam each call, as in the JAX package.
+        checkpoint_dir / checkpoint_every: see `_run_checkpointed`; the
+        minibatch loop's checkpoints also hold its permutation generator's
+        state."""
+        del initial_epoch, verbose
+        _not_ported(mesh=mesh)
         V = self.graph.num_nodes
         opt = self._adam(learning_rate)
         A, L = self.A, self.L
         consts = self._consts()
-        losses = []
-        with f32_matmul():
-            if batch_size >= V:
-                for _ in range(epochs):
-                    losses.append(adam_step(opt, lambda: sdne_loss(
-                        self.net, A, L, *consts)))
-            else:
-                gen = torch.Generator().manual_seed(self.seed + 2)
-                for _ in range(epochs):
+        if batch_size >= V:
+            def run_epochs(n):
+                return [adam_step(opt, lambda: sdne_loss(
+                    self.net, A, L, *consts)) for _ in range(n)]
+            gen = None
+        else:
+            gen = torch.Generator().manual_seed(self.seed + 2)
+
+            def run_epochs(n):
+                losses = []
+                for _ in range(n):
                     perm = torch.randperm(V, generator=gen).to(self.device)
                     losses += minibatch_epoch(self.net, opt, A, L, perm,
                                               batch_size, *consts)
-        return self._trained(losses)
+                return losses
+        return self._trained(self._run_checkpointed(
+            run_epochs, opt, epochs, checkpoint_dir, checkpoint_every, gen))
 
     def train_sparse(self, epochs=1, learning_rate=1e-3, row_chunk=512,
                      checkpoint_dir=None, checkpoint_every=0, mesh=None):
         """The full-batch objective without dense [V, V] matrices (see the
-        module docstring); one Adam step an epoch."""
-        del checkpoint_every
-        _not_ported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+        module docstring); one Adam step an epoch. checkpoint_dir /
+        checkpoint_every: see `_run_checkpointed`."""
+        _not_ported(mesh=mesh)
         inputs = self.sparse_inputs()
         opt = self._adam(learning_rate)
         consts = self._consts()
+
+        def run_epochs(n):
+            return [adam_step(opt, lambda: sparse_sdne_loss(
+                self.net, inputs, *consts, row_chunk)) for _ in range(n)]
+        return self._trained(self._run_checkpointed(
+            run_epochs, opt, epochs, checkpoint_dir, checkpoint_every))
+
+    def _run_checkpointed(self, run_epochs, opt, epochs, checkpoint_dir,
+                          checkpoint_every, gen=None):
+        """Run `epochs` epochs by `run_epochs(n)` (which returns the steps'
+        losses) with checkpoint and resume, the JAX package's
+        `_run_checkpointed`: with `checkpoint_dir` and `checkpoint_every`,
+        the epochs run in chunks of `checkpoint_every`, and after each the
+        parameters, `opt.state_dict()`, the epoch count and, when given,
+        the permutation generator `gen`'s state are saved; a checkpoint
+        already in `checkpoint_dir` is restored first (into the fresh Adam
+        `opt`) and only the epochs it lacks run. The chunks draw from one
+        stream in order, so a resumed train equals an uninterrupted one,
+        with or without checkpoints, bit for bit (the JAX package keys its
+        checkpointed minibatch chunks by their first epoch, so its
+        permutations there differ from its run without checkpoints)."""
+        start = 0
+        keys = SDNE_STATE_KEYS + (("rng",) if gen is not None else ())
+        state = (try_restore(checkpoint_dir, keys) if checkpoint_dir
+                 else None)
+        if state is not None:
+            self.net.load_state_dict(state["params"])
+            opt.load_state_dict(state["opt_state"])
+            if gen is not None:
+                gen.set_state(state["rng"])
+            start = int(state["epoch"])
+        every = checkpoint_every if checkpoint_dir else 0
+        losses = []
+        e = start
         with f32_matmul():
-            losses = [adam_step(opt, lambda: sparse_sdne_loss(
-                self.net, inputs, *consts, row_chunk))
-                for _ in range(epochs)]
-        return self._trained(losses)
+            while e < epochs:
+                n = min(every or epochs - e, epochs - e)
+                losses += run_epochs(n)
+                e += n
+                if every:
+                    save_state(checkpoint_dir, {
+                        "params": self.net.state_dict(),
+                        "opt_state": opt.state_dict(), "epoch": e,
+                        **({"rng": gen.get_state()} if gen is not None
+                           else {})})
+        return losses
 
     def _trained(self, losses):
         self.losses = torch.stack(losses) if losses else torch.zeros(

@@ -22,10 +22,11 @@ precision to "highest" (no TF32) while it runs.
 
 The window draws of a chunk (`eff`) are an input of `hs_block_chunk`, so a
 test can hand it the JAX package's draws; `HSTrainer.fit` makes them with
-a `torch.Generator`.
+a `torch.Generator`, and checkpoints, resumes and logs metrics as
+`SkipGramTrainer.fit` does.
 
 Not ported: the sparse cap form (the dense form computes the same update
-at any V), `mesh=`/`sync_every=`, checkpoints and metrics logging.
+at any V), `mesh=`/`sync_every=`.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from graphembedding_tpu_torch.ops.rows import ROW_KERNELS, ROW_PLAIN
 from graphembedding_tpu_torch.train.skipgram import (
+    Resume,
     block_geometry,
     corpus_counts,
     fit_block_walks,
@@ -45,7 +47,15 @@ from graphembedding_tpu_torch.train.skipgram import (
     prepare_epoch,
     window_geometry,
 )
+from graphembedding_tpu_torch.utils.checkpoint import maybe_save, try_restore
+from graphembedding_tpu_torch.utils.debug import (
+    validate_walks,
+    validation_enabled,
+)
 from graphembedding_tpu_torch.utils.precision import f32_matmul
+
+# what a checkpoint of `HSTrainer.fit` holds
+HS_STATE_KEYS = ("w_in", "w_tree", "step", "rng", "rng_epoch")
 
 
 def build_huffman(counts: np.ndarray):
@@ -221,14 +231,15 @@ class HSTrainer:
             checkpoint_every=0, metrics=None):
         """Train (w_in [V, D], w_tree [max(V - 1, 1), D]) over the corpus
         walks (int32 [NW, L], -1 pads); returns (w_in, w_tree, losses
-        [steps]). The draws come from a `torch.Generator` on the corpus'
-        device seeded with `seed` (default `self.seed`)."""
-        del checkpoint_every
-        for name, value in (("checkpoint_dir", checkpoint_dir),
-                            ("metrics", metrics)):
-            if value:
-                raise NotImplementedError(
-                    f"{name}= is not ported to graphembedding_tpu_torch")
+        [steps this fit ran]). The draws come from a `torch.Generator` on
+        the corpus' device seeded with `seed` (default `self.seed`).
+
+        checkpoint_dir / checkpoint_every / metrics as in
+        `SkipGramTrainer.fit`: the checkpoint holds w_in, w_tree, step and
+        the generator's states, and the metrics lines are `hs_chunk`.
+        """
+        if validation_enabled():
+            validate_walks(walks.cpu().numpy(), num_nodes)
         device = walks.device
         gen = torch.Generator(device=device)
         gen.manual_seed(self.seed if seed is None else seed)
@@ -250,17 +261,33 @@ class HSTrainer:
         keep_tok = keep_per_token(walks, counts, self.sample)
 
         D = self.embed_size
-        w_in = (torch.rand((num_nodes, D), generator=gen, device=device)
-                - 0.5) / D
-        w_tree = torch.zeros((max(num_nodes - 1, 1), D), dtype=torch.float32,
-                             device=device)
-        W = self.window
+        state = (try_restore(checkpoint_dir, HS_STATE_KEYS)
+                 if checkpoint_dir else None)
+        if state is None:
+            w_in = (torch.rand((num_nodes, D), generator=gen, device=device)
+                    - 0.5) / D
+            w_tree = torch.zeros((max(num_nodes - 1, 1), D),
+                                 dtype=torch.float32, device=device)
+        else:
+            w_in = state["w_in"].to(device)
+            w_tree = state["w_tree"].to(device)
+        resume = Resume(state)
+        W, S = self.window, self.chunk_steps
         losses, pairs = [], []
         t = 0
-        for _ in range(self.epochs):
+        n_chunk_calls = 0
+        epoch_steps = chunks_per_epoch * S
+        for epoch in range(self.epochs):
+            if t + epoch_steps <= resume.step:
+                t += epoch_steps  # a fully resumed epoch: no shuffle
+                continue
+            rng_epoch = resume.epoch_start(gen, t)
             shuffled = prepare_epoch(walks, keep_tok, gen)
+            resume.chunks_start(gen)
             for _ in range(chunks_per_epoch):
-                S = self.chunk_steps
+                if t < resume.step:
+                    t += S
+                    continue
                 u = torch.rand((S, geo.G, geo.PL), generator=gen,
                                device=device)
                 eff = W - (u * W).to(torch.int32).clamp(0, W - 1)
@@ -271,5 +298,16 @@ class HSTrainer:
                 losses.append(lc)
                 pairs.append(pc)
                 t += S
-        self.trained_pairs_ = float(torch.cat(pairs).sum())
+                n_chunk_calls += 1
+                if metrics is not None:
+                    metrics.log(kind="hs_chunk", epoch=epoch, step=t,
+                                loss=round(float(lc.mean()), 5))
+                maybe_save(checkpoint_dir, checkpoint_every, n_chunk_calls,
+                           lambda: {"w_in": w_in, "w_tree": w_tree,
+                                    "step": t, "rng": gen.get_state(),
+                                    "rng_epoch": rng_epoch})
+        self.trained_pairs_ = (float(torch.cat(pairs).sum()) if pairs
+                               else 0.0)
+        if not losses:  # fully resumed past the end
+            return w_in, w_tree, torch.zeros(0, device=device)
         return w_in, w_tree, torch.cat(losses)

@@ -14,10 +14,13 @@ The random draws of a chunk of steps (`eff`, the dynamic window, and
 test can hand it the JAX package's draws; `SkipGramTrainer.fit` makes
 them with a `torch.Generator`.
 
+`SkipGramTrainer.fit` checkpoints and resumes (`utils.checkpoint`, with
+the generator's states, so a resumed fit is bit-identical to an
+uninterrupted one) and logs one metrics line a chunk.
+
 Not ported: the sparse cap form (the dense form computes the same update
 at any V), `stale_groups`, `use_pallas`/`matmul_bf16`,
-`shuffle_mode='block'`, the re-gathering epoch pass, checkpoints and
-metrics logging.
+`shuffle_mode='block'`, the re-gathering epoch pass.
 """
 
 from __future__ import annotations
@@ -37,6 +40,11 @@ from graphembedding_tpu_torch.ops.rows import (
 from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads,
     sgns_block_grads_plain,
+)
+from graphembedding_tpu_torch.utils.checkpoint import maybe_save, try_restore
+from graphembedding_tpu_torch.utils.debug import (
+    validate_walks,
+    validation_enabled,
 )
 
 
@@ -338,6 +346,42 @@ def block_upscale(NW, num_nodes, cfg) -> int:
     return bw_req
 
 
+# what a checkpoint of `SkipGramTrainer.fit` holds
+SGNS_STATE_KEYS = ("w_in", "w_out", "step", "rng", "rng_epoch")
+
+
+class Resume:
+    """Where a fit restored from a checkpoint picks up its random stream.
+
+    `step` is the checkpoint's step (0 without one). The fit calls
+    `epoch_start` before the shuffle of each epoch it trains, and
+    `chunks_start` after it. In the first such epoch the generator is set
+    to the checkpoint's `rng_epoch` when the checkpoint lies inside the
+    epoch (the shuffle is redone, then the generator jumps to `rng`), or
+    to `rng` when the checkpoint lies at the epoch's start.
+    """
+
+    def __init__(self, state):
+        self.state = state
+        self.step = 0 if state is None else int(state["step"])
+        self._inside = False
+
+    def epoch_start(self, gen, t):
+        """Set gen for the epoch starting at step t; returns its state,
+        which checkpoints saved in this epoch hold as `rng_epoch`."""
+        if self.state is not None:
+            self._inside = t < self.step
+            gen.set_state(self.state["rng_epoch"] if self._inside
+                          else self.state["rng"])
+        return gen.get_state()
+
+    def chunks_start(self, gen):
+        """After the epoch's shuffle: on to the checkpoint's state, once."""
+        if self.state is not None and self._inside:
+            gen.set_state(self.state["rng"])
+        self.state = None
+
+
 class SkipGramTrainer:
     """SGNS fit over a walk corpus on the corpus' device."""
 
@@ -353,14 +397,28 @@ class SkipGramTrainer:
                            device=device) - 0.5) / D
         return torch.cat([w_in, torch.zeros_like(w_in)], 1)
 
-    def fit(self, walks, num_nodes, seed=None):
+    def fit(self, walks, num_nodes, seed=None, checkpoint_dir=None,
+            checkpoint_every=0, metrics=None):
         """Train over the corpus walks (int32 [NW, L], -1 pads).
 
-        Returns (w_cat [V, 2D], losses [steps]); the step draws come from
-        a `torch.Generator` on the corpus' device seeded with `seed`
-        (default `config.seed`).
+        Returns (w_cat [V, 2D], losses [steps this fit ran]); the step
+        draws come from a `torch.Generator` on the corpus' device seeded
+        with `seed` (default `config.seed`).
+
+        checkpoint_dir / checkpoint_every: save (w_in, w_out, step) and the
+        generator's states every `checkpoint_every` chunks this fit runs,
+        and resume from the checkpoint in `checkpoint_dir` when there is
+        one (`utils.checkpoint`). One generator draws the table, every
+        epoch's shuffle and every chunk's draws, so a checkpoint holds its
+        state at the save point (`rng`) and at the start of the epoch being
+        trained (`rng_epoch`, to redo that epoch's shuffle): a resumed fit
+        equals an uninterrupted one bit for bit. `metrics`: a
+        `utils.metrics.MetricsLogger` that gets one `sgns_chunk` line a
+        chunk.
         """
         cfg = self.config
+        if validation_enabled():
+            validate_walks(walks.cpu().numpy(), num_nodes)
         device = walks.device
         gen = torch.Generator(device=device)
         gen.manual_seed(cfg.seed if seed is None else seed)
@@ -381,13 +439,30 @@ class SkipGramTrainer:
             device=device)
         keep_tok = keep_per_token(walks, counts, cfg.sample)
 
-        w_cat = self.init_table(num_nodes, gen, device)
+        D = cfg.embed_size
+        state = (try_restore(checkpoint_dir, SGNS_STATE_KEYS)
+                 if checkpoint_dir else None)
+        if state is None:
+            w_cat = self.init_table(num_nodes, gen, device)
+        else:
+            w_cat = torch.cat([state["w_in"], state["w_out"]], 1).to(device)
+        resume = Resume(state)
         losses, pairs = [], []
         t = 0
-        for _ in range(cfg.epochs):
+        n_chunk_calls = 0
+        epoch_steps = chunks_per_epoch * cfg.chunk_steps
+        for epoch in range(cfg.epochs):
+            if t + epoch_steps <= resume.step:
+                t += epoch_steps  # a fully resumed epoch: no shuffle
+                continue
+            rng_epoch = resume.epoch_start(gen, t)
             shuffled = prepare_epoch(walks, keep_tok, gen)
+            resume.chunks_start(gen)
             for _ in range(chunks_per_epoch):
                 S = cfg.chunk_steps
+                if t < resume.step:
+                    t += S
+                    continue
                 u = torch.rand((S, geo.G, geo.PL), generator=gen,
                                device=device)
                 eff = cfg.window - (u * cfg.window).to(torch.int32).clamp(
@@ -404,5 +479,17 @@ class SkipGramTrainer:
                 losses.append(lc)
                 pairs.append(pc)
                 t += S
-        self.trained_pairs_ = float(torch.cat(pairs).sum())
+                n_chunk_calls += 1
+                if metrics is not None:
+                    metrics.log(kind="sgns_chunk", epoch=epoch, step=t,
+                                loss=round(float(lc.mean()), 5))
+                maybe_save(checkpoint_dir, checkpoint_every, n_chunk_calls,
+                           lambda: {"w_in": w_cat[:, :D],
+                                    "w_out": w_cat[:, D:], "step": t,
+                                    "rng": gen.get_state(),
+                                    "rng_epoch": rng_epoch})
+        self.trained_pairs_ = (float(torch.cat(pairs).sum()) if pairs
+                               else 0.0)
+        if not losses:  # fully resumed past the end
+            return w_cat, torch.zeros(0, device=device)
         return w_cat, torch.cat(losses)

@@ -8,7 +8,7 @@ reference's `preprocess_nxgraph` assigns them.
 
 from __future__ import annotations
 
-from typing import Dict, Hashable, Iterable, List
+from typing import Dict, Hashable, Iterable, List, Tuple
 
 import numpy as np
 
@@ -76,3 +76,46 @@ class IdentityVocab:
         if node not in self:
             raise KeyError(node)
         return int(node)
+
+
+def preprocess_nxgraph(graph) -> Tuple[List, Dict]:
+    """Reference-API shim: (idx2node, node2idx) in graph.nodes() order."""
+    vocab = Vocab(graph.nodes())
+    return vocab.idx2node, vocab.node2idx
+
+
+# the reference's work-partition helpers (`ge/utils.py`, partition_*): they
+# sliced work for joblib processes; here all parallelism is on the device,
+# and they are kept for users' migration scripts
+
+
+def partition_num(num: int, workers: int) -> List[int]:
+    if num % workers == 0:
+        return [num // workers] * workers
+    return [num // workers] * workers + [num % workers]
+
+
+def partition_dict(vertices: Dict, workers: int):
+    batch_size = (len(vertices) - 1) // workers + 1
+    part_list, part = [], []
+    for v1, nbs in vertices.items():
+        part.append((v1, nbs))
+        if len(part) == batch_size:
+            part_list.append(part)
+            part = []
+    if part:
+        part_list.append(part)
+    return part_list
+
+
+def partition_list(vertices: List, workers: int):
+    batch_size = (len(vertices) - 1) // workers + 1
+    part_list, part = [], []
+    for v1, nbs in enumerate(vertices):
+        part.append((v1, nbs))
+        if len(part) == batch_size:
+            part_list.append(part)
+            part = []
+    if part:
+        part_list.append(part)
+    return part_list

@@ -13,8 +13,10 @@ run to run; K2 and K4 are bit-equal to the plain version's sequential sum
 on the CPU and to each other; four SGNS steps rtol=1e-4, atol=1e-6, four
 LINE steps and four HS steps rtol=1e-5, atol=1e-6 (the plain version on
 the card scatters with atomics); the multilayer walk is bit-identical from
-one seed. SDNE's three trainers and the dense expected-SGNS fit run no
-kernel of the port's; their steps on the card are bit-identical from run
+one seed; a resumed train is bit-identical to an uninterrupted one, and
+`most_similar` on the card gives the numpy path's names (apart from ties)
+and scores within 1e-5. SDNE's three trainers and the dense expected-SGNS
+fit run no kernel of the port's; their steps on the card are bit-identical from run
 to run and agree with the same steps on the CPU: losses rtol=1e-5, and
 each parameter's update (value minus the shared initial value) within
 1e-3 of the CPU's in L2 norm. Adam's step is about lr * grad / (|grad| +
@@ -540,3 +542,102 @@ def test_line_dense_inputs_on_card(cuda):
     assert torch.equal(A.cpu(), A_cpu)
     assert torch.equal(q, line.dense_line_inputs(g, cuda)[1])
     np.testing.assert_allclose(q.cpu().numpy(), q_cpu.numpy(), rtol=1e-6)
+
+
+class Interrupt(Exception):
+    pass
+
+
+class StopAt:
+    """A metrics logger that raises on its n-th line."""
+
+    def __init__(self, n):
+        self.n, self.lines = n, 0
+
+    def log(self, **fields):
+        self.lines += 1
+        if self.lines == self.n:
+            raise Interrupt
+
+
+@pytest.mark.parametrize("hs", [0, 1])
+def test_resume_bit_identical_on_card(cuda, tmp_path, hs):
+    """DeepWalk (SGNS: K1-K3; hs=1: K3, K4) interrupted after chunk 2 of 3
+    (a checkpoint every chunk), then resumed in a fresh model: the tables
+    of an uninterrupted train, bit for bit, with the kernels launched for
+    the two chunks that remained."""
+    from graphembedding_tpu_torch import DeepWalk
+
+    g = synthetic_wiki(num_nodes=300, num_classes=4, seed=2).graph
+    kw = dict(embed_size=32, window_size=3, iter=3, hs=hs)
+    want = DeepWalk(g, walk_length=10, num_walks=10, device=cuda)
+    want.train(**kw)
+    ck = dict(checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    m = DeepWalk(g, walk_length=10, num_walks=10, device=cuda)
+    with pytest.raises(Interrupt):
+        m.train(metrics=StopAt(2), **kw, **ck)
+    m = DeepWalk(g, walk_length=10, num_walks=10, device=cuda)
+    kernels = ((gather_rows, scatter_add_small) if hs else
+               (sgns_block_grads, scatter_add_rows, gather_rows))
+    before = [k.launches for k in kernels]
+    m.train(**kw, **ck)
+    torch.cuda.synchronize()
+    steps = m.losses.shape[0]
+    assert steps == 2 * want.losses.shape[0] // 3
+    per_step = (2, 2) if hs else (1, 2, 2)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        n * steps for n in per_step]
+    assert torch.equal(m.w_in, want.w_in)
+    assert torch.equal(m.w_out, want.w_out)
+
+
+def test_line_resume_bit_identical_on_card(cuda, tmp_path, monkeypatch):
+    """LINE order 'all' (K3, K4) interrupted inside order 'second', then
+    resumed: the tables of an uninterrupted train, bit for bit."""
+    g = synthetic_wiki(num_nodes=300, num_classes=4, seed=2).graph
+    # 3 chunks of 512 steps of 256 edges an order
+    kw = dict(batch_size=256,
+              epochs=3 * line.CHUNK_STEPS * 256 / g.num_edges)
+    want = LINE(g, embedding_size=32, order="all", device=cuda)
+    want.train(**kw)
+    chunk, calls = line.line_train_chunk, []
+
+    def interrupted(*a, **k):
+        calls.append(1)
+        if len(calls) == 5:
+            raise Interrupt
+        return chunk(*a, **k)
+
+    monkeypatch.setattr(line, "line_train_chunk", interrupted)
+    with pytest.raises(Interrupt):
+        LINE(g, embedding_size=32, order="all", device=cuda).train(
+            checkpoint_dir=str(tmp_path), checkpoint_every=1, **kw)
+    monkeypatch.setattr(line, "line_train_chunk", chunk)
+    m = LINE(g, embedding_size=32, order="all", device=cuda)
+    m.train(checkpoint_dir=str(tmp_path), checkpoint_every=1, **kw)
+    assert m.losses.shape[0] == 2 * line.CHUNK_STEPS
+    assert torch.equal(m.embedding_table, want.embedding_table)
+    assert torch.equal(m.context_emb, want.context_emb)
+
+
+def test_most_similar_on_card_matches_numpy(cuda, monkeypatch):
+    """most_similar at 300,000 rows on the card (one product and top-k)
+    against the numpy path on the same table: the same names apart from
+    ties, scores within 1e-5."""
+    from graphembedding_tpu_torch.utils import simquery
+
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((300_000, 32)).astype(np.float32)
+    names = [str(i) for i in range(table.shape[0])]
+    queries = [dict(node="7"), dict(vector=table[11] + 0.5)]
+    got = [simquery.most_similar((names, table), topn=10, **q)
+           for q in queries]
+    monkeypatch.setattr(simquery, "_DEVICE_MIN_ROWS", 10 ** 9)
+    want = [simquery.most_similar((names, table), topn=10, **q)
+            for q in queries]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w],
+                                   atol=1e-5)
+        tied = {n for n, s in w if abs(s - w[-1][1]) <= 1e-5}
+        assert {n for n, _ in g} ^ {n for n, _ in w} <= tied | {
+            n for n, s in g if abs(s - w[-1][1]) <= 1e-5}

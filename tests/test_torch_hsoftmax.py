@@ -188,13 +188,24 @@ def test_hs_loss_decreases():
     assert tr.trained_pairs_ > 0
 
 
-def test_hs_trainer_options():
+def test_hs_trainer_options(tmp_path):
     with pytest.raises(NotImplementedError):
         ths.HSTrainer(mesh=object())
     walks = torch.zeros((8, 4), dtype=torch.int32)
-    for kw in ({"checkpoint_dir": "ckpt"}, {"metrics": object()}):
-        with pytest.raises(NotImplementedError):
-            ths.HSTrainer(embed_size=4, epochs=1).fit(walks, 3, **kw)
+    # checkpoints and metrics are ported (tests/test_torch_checkpoint.py)
+    logged = []
+
+    class Lines:
+        def log(self, **fields):
+            logged.append(fields)
+
+    _, _, losses = ths.HSTrainer(embed_size=4, epochs=1).fit(
+        walks, 3, checkpoint_dir=str(tmp_path), checkpoint_every=1,
+        metrics=Lines())
+    assert [f["kind"] for f in logged] == ["hs_chunk"]
+    assert logged[0]["step"] == losses.shape[0] == 64
+    assert ths.HSTrainer(embed_size=4, epochs=1).fit(
+        walks, 3, checkpoint_dir=str(tmp_path))[2].shape == (0,)
     # a one-node corpus: a tree of one padded row, and one tree row
     w_in, w_tree, _ = ths.HSTrainer(embed_size=4, epochs=1).fit(walks, 1)
     assert tuple(w_in.shape) == (1, 4) and tuple(w_tree.shape) == (1, 4)

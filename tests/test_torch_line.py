@@ -8,6 +8,8 @@ XLA's). Sampling is compared in distribution: the port draws from
 `torch.Generator`s. Quality: the hard-SBM gate of tests/test_models.py.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -277,12 +279,16 @@ def test_line_hard_sbm_gate():
     assert sum(scores) / len(scores) >= 0.56, scores
 
 
-def test_line_unsupported_options_raise():
+def test_line_unsupported_options_raise(tmp_path):
     m = LINE(small_graph().graph, embedding_size=4, device="cpu")
-    for kw in ({"mesh": object()}, {"sync_every": 4},
-               {"checkpoint_dir": "ckpt"}, {"checkpoint_every": 2}):
+    for kw in ({"mesh": object()}, {"sync_every": 4}):
         with pytest.raises(NotImplementedError):
             m.train(epochs=1, **kw)
+    # checkpoints are ported (tests/test_torch_checkpoint.py): one
+    # subdirectory an order; checkpoint_every alone saves nothing
+    m.train(epochs=1, checkpoint_every=2)
+    m.train(epochs=1, checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    assert os.listdir(tmp_path) == ["second"]
     # trainer='dense' trains (tests/test_torch_dense.py)
     m.train(trainer="dense", steps=2)
     assert m.losses.shape == (1,) and torch.isfinite(m.losses).all()

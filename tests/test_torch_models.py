@@ -42,8 +42,13 @@ def test_load_wiki_is_the_synthetic_graph():
     ds = tds.load_dataset("wiki")
     assert (ds.graph.num_nodes, ds.graph.num_edges) == (2405, 16305)
     assert ds.graph.max_degree == 139
-    with pytest.raises(NotImplementedError):
-        tds.load_dataset("blogcatalog")
+    # BlogCatalog loads its synthetic stand-in (tests/test_torch_utils.py
+    # holds it against the JAX package's); unknown names raise as there
+    bc = tds.load_dataset("blogcatalog")
+    assert (bc.name, bc.graph.num_nodes) == ("blogcatalog-synthetic", 10312)
+    assert len({y[0] for y in bc.Y}) == 39
+    with pytest.raises(ValueError, match="unknown dataset"):
+        tds.load_dataset("cora")
 
 
 def test_classifier_matches_sklearn():
@@ -95,14 +100,24 @@ def test_deepwalk_hard_sbm_gate():
     assert sum(scores) / len(scores) >= 0.60, scores
 
 
-def test_unsupported_options_raise():
+def test_unsupported_options_raise(tmp_path):
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
     m = DeepWalk(ds.graph, walk_length=5, num_walks=2, device="cpu")
-    for kw in ({"mesh": object()},
-               {"checkpoint_dir": "ckpt"}, {"cap_mode": "sparse"},
-               {"hs": 1, "metrics": object()}):
+    for kw in ({"mesh": object()}, {"cap_mode": "sparse"},
+               {"hs": 1, "mesh": object()}):
         with pytest.raises(NotImplementedError):
             m.train(embed_size=8, iter=1, **kw)
+    # checkpoints and metrics are ported (tests/test_torch_checkpoint.py)
+    from graphembedding_tpu_torch.utils.metrics import MetricsLogger
+
+    for hs in (0, 1):
+        with MetricsLogger(str(tmp_path / f"m{hs}.jsonl"), quiet=True) as ml:
+            m.train(embed_size=8, iter=1, hs=hs, metrics=ml,
+                    checkpoint_dir=str(tmp_path / f"c{hs}"),
+                    checkpoint_every=1)
+        lines = open(tmp_path / f"m{hs}.jsonl").read().splitlines()
+        assert len(lines) * 64 == m.losses.shape[0] > 0
+        assert os.listdir(tmp_path / f"c{hs}") == ["state.pt"]
     # trainer='dense' trains (tests/test_torch_dense.py); with hs it is
     # invalid, as in the JAX package
     with pytest.raises(ValueError):
@@ -161,7 +176,22 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.benchmarks.dma_gather, "
             "graphembedding_tpu_torch.benchmarks.scatter_bench, "
             "graphembedding_tpu_torch.benchmarks.spmm_bench, "
-            "graphembedding_tpu_torch.benchmarks.train_profile; "
+            "graphembedding_tpu_torch.benchmarks.train_profile, "
+            "graphembedding_tpu_torch.utils, "
+            "graphembedding_tpu_torch.utils.checkpoint, "
+            "graphembedding_tpu_torch.utils.metrics, "
+            "graphembedding_tpu_torch.utils.io, "
+            "graphembedding_tpu_torch.utils.simquery, "
+            "graphembedding_tpu_torch.utils.debug, "
+            "graphembedding_tpu_torch.utils.profiling, "
+            "graphembedding_tpu_torch.walker, "
+            "graphembedding_tpu_torch.examples.common, "
+            "graphembedding_tpu_torch.examples.deepwalk_wiki, "
+            "graphembedding_tpu_torch.examples.node2vec_wiki, "
+            "graphembedding_tpu_torch.examples.line_wiki, "
+            "graphembedding_tpu_torch.examples.line_blogcatalog, "
+            "graphembedding_tpu_torch.examples.sdne_wiki, "
+            "graphembedding_tpu_torch.examples.struc2vec_flight; "
             "assert 'jax' not in sys.modules; "
             "assert 'graphembedding_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -438,13 +438,19 @@ def test_chunk_rows_rebuild_the_adjacency():
     np.testing.assert_array_equal(rows.numpy(), m.A.numpy())
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     g = small(tds).graph
     m = SDNE(g, hidden_size=[4, 2], device="cpu")
     for fn in (m.train, m.train_sparse):
-        for kw in ({"mesh": object()}, {"checkpoint_dir": "ckpt"}):
-            with pytest.raises(NotImplementedError):
-                fn(epochs=1, **kw)
+        with pytest.raises(NotImplementedError):
+            fn(epochs=1, mesh=object())
+    # checkpoints are ported (tests/test_torch_checkpoint.py)
+    for name, fn in (("train", m.train), ("sparse", m.train_sparse)):
+        fn(epochs=2, checkpoint_dir=str(tmp_path / name),
+           checkpoint_every=1)
+        assert m.losses.shape[0] > 0
+        fn(epochs=2, checkpoint_dir=str(tmp_path / name))
+        assert m.losses.shape == (0,)
 
 
 def test_signature_defaults_equal_jax():
