@@ -130,6 +130,32 @@ plain PyTorch); the run fails if any kernel's count moves in them.
      top-k) against the numpy path on the same table: the same top-10
      names apart from ties within 1e-5, scores within 1e-5; warm ms a
      query for both.
+ 24. the mesh at world size 1 over NCCL (one spawned rank on the card):
+     `rowsharded_sgns_chunk` against `sgns_block_chunk_cat` for 4 steps on
+     the DeepWalk-on-Wiki shapes (the corpus of phase 5, D = 128), tables,
+     losses and pair counts equal (torch.equal), with K3 once, K1 once and
+     K2 twice a step; then DeepWalk on Wiki trained with mesh= in rowshard
+     mode (train s, trained pairs/s, launches = steps x the per-step
+     counts, micro-F1 >= its gate);
+ 25. the mesh at world size 2 over gloo, both ranks on the card (two
+     spawned ranks; every exchange staged through host memory): the
+     rowshard chunk, the dp chunk at mesh (2, 1) and (1, 2), the HS dp
+     chunk, the LINE dp chunk and SDNE's full-batch and sparse mesh
+     trainers, each on the card against the same chunk at world size 2 on
+     the CPU from the same weights and draws, within the tolerances of
+     phases 4, 13, 9 and 16; then, on the card, DeepWalk (walk_length=10,
+     num_walks=80) trained with mesh= in rowshard and dp mode and with
+     hs=1, LINE order 'second' (batch 1024, 50 epochs) and SDNE [256, 128]
+     (full batch, 40 epochs), each with micro-F1 >= its gate, train s, its
+     rate and each kernel's launches on each rank;
+ 26. restart over the mesh: the rowshard DeepWalk fit of phase 25 cut by an
+     exception after its second chunk (a checkpoint a chunk, a file a
+     rank) and resumed in the same ranks: tables torch.equal to phase 25's
+     uninterrupted fit, and the resumed run's launches = the one remaining
+     chunk's steps x the per-step counts.
+World size 2 on one card measures correctness and the exchanges' cost, not
+scaling: both ranks share the card, and gloo moves every exchange through
+host memory.
 
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
@@ -191,6 +217,15 @@ SDNE_SPARSE_MAX_BYTES = 8 << 30
 # the JAX package gives 0.9995 on the CPU (seed 0, tools/reference_f1.py);
 # the port's random streams differ from its
 BC_MIN_MICRO_F1 = 0.95
+# the mesh phases: the JAX package's CPU micro-F1 over a (2, 1) mesh of two
+# virtual devices, seeds 0-2 (tools/reference_f1.py, mesh_*), less 0.04
+# and rounded down to 0.01, as the gates above keep 0.03-0.05 below theirs:
+# rowshard 0.9543-0.9688, dp 0.9397-0.9459, hs=1 0.9647-0.9709, LINE
+# 0.7464-0.7568, SDNE full batch 0.7547-0.7817
+MESH_MIN_MICRO_F1 = {"rowshard": 0.91, "dp": 0.89, "hs": 0.92, "line": 0.70,
+                     "sdne": 0.71}
+MESH_SGNS_TOL = (1e-4, 1e-6)  # phase 4's tolerance
+MESH_ROW_TOL = (1e-5, 1e-6)  # phases 9 and 13's: LINE and HS steps
 DEVICE = "cuda"
 
 
@@ -524,6 +559,7 @@ def main():
     restart_phases(dev, card)
     blogcatalog_phase(dev, card)
     simquery_phase(dev, card)
+    mesh_phases(card)
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
@@ -1753,6 +1789,344 @@ def simquery_phase(dev, card):
           f"within {err:.2e}; card {1e3 * dev_s / n:.2f} ms a query warm "
           f"(the first {n} queries {cold_s:.3f} s with the upload), numpy "
           f"{1e3 * np_s / n:.2f} ms a query [{card}]", flush=True)
+
+
+def mesh_train(what, gate, train, model, ds, per_step):
+    """Phases 24-25: train(model) on the card in this rank, then its
+    micro-F1, to be held to MESH_MIN_MICRO_F1[gate]. per_step: the K1-K4
+    launches a step (K4 for V <= 16,384), checked against the steps the
+    run's losses count. Returns the numbers."""
+    import torch
+
+    from graphembedding_tpu_torch.eval.classify import Classifier
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, launches = counted(lambda: train(model))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    table = model.embedding_table
+    if not torch.isfinite(table).all() or not torch.isfinite(
+            model.losses).all():
+        fail(f"{what}: non-finite embeddings or losses")
+    steps = model.losses.shape[0]
+    want = {k: n * steps for k, n in per_step.items()}
+    if launches != want:
+        fail(f"{what}: launches {launches}, want {want} ({steps} steps)")
+    f1 = Classifier(model.get_embeddings()).split_train_evaluate(
+        ds.X, ds.Y, 0.8, seed=0)["micro"]
+    return dict(what=what, gate=gate, f1=f1, train_s=train_s, steps=steps,
+                launches=launches)
+
+
+SGNS_STEP = {"sgns_block_grads": 1, "scatter_add_rows": 2,
+             "gather_rows": 1, "scatter_add_small": 0}  # rowshard
+DP_STEP = dict(SGNS_STEP, gather_rows=2)
+HS_STEP = {"sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 2,
+           "scatter_add_small": 2}
+LINE_STEP = HS_STEP  # order 'second': emb and ctx, a gather and a scatter
+NO_KERNEL = dict.fromkeys(HS_STEP, 0)
+
+
+def wiki_draws(geo, S, V, K, seed, dev):
+    """Window draws in {1..5} and negative ids of S steps, from a CPU
+    generator (so the card and the CPU get the same), on dev."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    eff = 5 - (torch.rand((S, geo.G, geo.PL), generator=gen) * 5).to(
+        torch.int32).clamp(0, 4)
+    negs = torch.randint(0, V, (S, geo.G2, K), generator=gen,
+                         dtype=torch.int32)
+    return eff.to(dev), negs.to(dev)
+
+
+def mesh_world1_rank(info):
+    """Phase 24, in a spawned NCCL rank of world size 1."""
+    import torch
+
+    from graphembedding_tpu_torch import DeepWalk
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.parallel import make_mesh
+    from graphembedding_tpu_torch.parallel.rowshard import (
+        rank_geometry, rowsharded_sgns_chunk)
+    from graphembedding_tpu_torch.train import skipgram as sg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = info.device
+    mesh = make_mesh((1, 1), device=dev)
+    ds = load_dataset("wiki")
+    model = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+    walks = model.walks
+    NW, L = walks.shape
+    V, D, K, S = ds.graph.num_nodes, 128, 64, 4
+    geo = rank_geometry(NW, L, 4032, 1, 4)
+    gen = torch.Generator().manual_seed(5)
+    w0 = ((torch.rand((V, 2 * D), generator=gen) - 0.5) / D).to(dev)
+    w0[:, D:] = (torch.randn((V, D), generator=gen) * 0.05).to(dev)
+    eff, negs = wiki_draws(geo, S, V, K, 6, dev)
+    kw = dict(block_walks=4032, window=5, negative=5, neg_share_packs=4)
+    want = sg.sgns_block_chunk_cat(w0.clone(), walks, eff, negs, 0.025,
+                                   1e-4, 0, 192.0, **kw)
+    got, launches = counted(lambda: rowsharded_sgns_chunk(
+        w0.clone(), walks, eff, negs, 0.025, 1e-4, 0, 192.0, mesh=mesh,
+        **kw))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("rowshard chunk at world 1 (NCCL) differs from "
+             "sgns_block_chunk_cat")
+    if launches != {k: n * S for k, n in SGNS_STEP.items()}:
+        fail(f"rowshard chunk at world 1: launches {launches} in {S} steps")
+    moved = float((got[0] - w0).abs().max())
+    chunk = (f"rowshard chunk, world 1 over NCCL: {S} steps at G={geo.G} "
+             f"PL={geo.PL} G2={geo.G2} K={K} D={D}, tables, losses and "
+             f"pairs torch.equal to sgns_block_chunk_cat (moved by "
+             f"{moved:.3e}); launches {launches} = a step K3 1, K1 1, K2 2")
+    run = mesh_train("DeepWalk rowshard, world 1 (NCCL)", "rowshard",
+                     lambda m: m.train(
+        embed_size=128, window_size=5, iter=3, mesh=mesh), model, ds,
+        SGNS_STEP)
+    run["rate"] = model.trained_pairs / run["train_s"]
+    return dict(chunk=chunk, runs=[run])
+
+
+def card_and_cpu(fn, tensors, dev):
+    """fn on copies of tensors on the card, then on the CPU (the same
+    collectives in the same order on every rank)."""
+    on_card = fn(*[t.to(dev, copy=True) if t is not None else None
+                   for t in tensors])
+    on_cpu = fn(*[t.clone() if t is not None else None for t in tensors])
+    return on_card, on_cpu
+
+
+def mesh_chunks(dev, ds, walks, mesh, mesh12, di):
+    """Phase 25's chunks, card against CPU at world 2; result lines."""
+    import torch
+
+    from graphembedding_tpu_torch import LINE, SDNE
+    from graphembedding_tpu_torch.models import line as line_mod
+    from graphembedding_tpu_torch.parallel import hsoftmax, sgns
+    from graphembedding_tpu_torch.parallel.line import sharded_line_chunk
+    from graphembedding_tpu_torch.parallel.rowshard import (
+        rank_geometry, rowsharded_sgns_chunk)
+    from graphembedding_tpu_torch.train.hsoftmax import build_huffman
+    from graphembedding_tpu_torch.train.skipgram import corpus_counts
+
+    NW, L = walks.shape
+    V, D, K, n = ds.graph.num_nodes, 128, 64, 2
+    walks = walks.cpu()
+    gen = torch.Generator().manual_seed(7)
+    table = (torch.rand((V, 2 * D), generator=gen) - 0.5) / D
+    table[:, D:] = torch.randn((V, D), generator=gen) * 0.05
+    kw = dict(block_walks=4032, window=5, negative=5, neg_share_packs=4)
+    lines = []
+
+    def held(what, got, want, tol):
+        err = max(max_err(a.cpu(), b, *tol, f"{what}, card against CPU")
+                  for a, b in zip(got, want))
+        lines.append(f"{what}: card against the CPU at world 2, max abs "
+                     f"err {err:.3e} (rtol {tol[0]}, atol {tol[1]})")
+
+    # rowshard: each rank's rows of the padded table, its own draws
+    Vp, S = -(-V // n), 2
+    geo = rank_geometry(NW, L, 4032, n, 4)
+    w = torch.zeros((n * Vp, 2 * D))
+    w[:V] = table
+    eff, negs = wiki_draws(geo, S, V, K, 10 + di, "cpu")
+    got, want = card_and_cpu(lambda w_, wk, e, ng: rowsharded_sgns_chunk(
+        w_, wk, e, ng, 0.025, 1e-4, 0, 192.0, mesh=mesh, **kw),
+        (w[di * Vp:(di + 1) * Vp], walks, eff, negs), dev)
+    held(f"rowshard chunk ({S} steps, G={geo.G} PL={geo.PL} a rank)", got,
+         want, MESH_SGNS_TOL)
+    # dp at (2, 1) and (1, 2): eff shared, negatives by data rank
+    for m_, shape in ((mesh, "(2, 1)"), (mesh12, "(1, 2)")):
+        d = m_.get_local_rank("data")
+        geo = sgns.dp_geometry(NW, L, 4032, m_.size("data"), 4)
+        eff, _ = wiki_draws(geo, 4, V, K, 20, "cpu")
+        _, negs = wiki_draws(geo, 4, V, K, 30 + d, "cpu")
+        cols = slice(m_.get_local_rank("model") * D // m_.size("model"),
+                     (m_.get_local_rank("model") + 1) * D
+                     // m_.size("model"))
+        w = torch.cat([table[:, :D][:, cols], table[:, D:][:, cols]], 1)
+        got, want = card_and_cpu(lambda w_, wk, e, ng: sgns.sharded_sgns_chunk(
+            w_, wk, e, ng, 0.025, 1e-4, 0, 192.0, mesh=m_, sync_every=2,
+            **kw), (w, walks, eff, negs), dev)
+        held(f"dp chunk at mesh {shape} (4 steps, sync every 2)", got, want,
+             MESH_SGNS_TOL)
+    # HS dp at (2, 1): the DeepWalk hs=1 block (504 walks) split in two
+    points, codes, _ = build_huffman(corpus_counts(walks, V))
+    points, codes = torch.as_tensor(points), torch.as_tensor(codes)
+    geo = sgns.dp_geometry(NW, L, 504, n, 1)
+    eff, _ = wiki_draws(geo, 4, V, K, 40 + di, "cpu")
+    w_tree = torch.randn((V - 1, D), generator=gen) * 0.05
+    got, want = card_and_cpu(
+        lambda wi, wt, wk, p, c, e: hsoftmax.sharded_hs_chunk(
+            wi, wt, wk, p, c, e, 0.025, 1e-4, 0, 1152.0, mesh=mesh,
+            block_walks=504, window=5, sync_every=2),
+        (table[:, :D].clone(), w_tree, walks, points, codes, eff), dev)
+    held(f"HS dp chunk (4 steps, G={geo.G} PL={geo.PL} T={points.shape[1]} "
+         f"a rank)", got, want, MESH_ROW_TOL)
+    # LINE dp: 512 edges a rank a step, order 'second'
+    lm = LINE(ds.graph, embedding_size=D, order="second", device="cpu")
+    draws = line_mod.line_bulk_samples(
+        lm._edge_src, lm._edge_dst, lm._edge_accept, lm._edge_alias,
+        lm._neg_table, torch.Generator().manual_seed(50 + di), 0.025, 0,
+        1000.0, chunk_steps=4, batch_size=512, negative=5, k_shared=0)
+    got, want = card_and_cpu(
+        lambda e, c, *dr: sharded_line_chunk(e, c, *dr, mesh=mesh,
+                                             negative=5, sync_every=2),
+        (table[:, :D].clone(), table[:, D:].clone(), *draws), dev)
+    held("LINE dp chunk (4 steps, 512 edges a rank)", got, want,
+         MESH_ROW_TOL)
+    # SDNE's mesh trainers: three steps, from the same parameters
+    for mode, train in (
+            ("full batch", lambda m: m.train(batch_size=3000, epochs=3,
+                                             mesh=mesh)),
+            ("sparse", lambda m: m.train_sparse(epochs=3, row_chunk=512,
+                                                mesh=mesh))):
+        runs = []
+        for device in (dev, "cpu"):
+            m = SDNE(ds.graph, hidden_size=[256, 128], device=device)
+            init = [p.detach().cpu().clone() for p in m.net.parameters()]
+            no_kernel_launched(f"SDNE {mode} over the mesh",
+                               lambda: train(m))
+            runs.append(([p.detach().cpu() for p in m.net.parameters()],
+                         m.losses.cpu()))
+        (got, loss), (want, want_loss) = runs
+        loss_err = max_err(loss, want_loss, SDNE_LOSS_RTOL, 0.0,
+                           f"SDNE {mode} mesh losses, card against CPU")
+        ratio = max(float((a - b).norm() / (b - p0).norm())
+                    for a, b, p0 in zip(got, want, init))
+        if not ratio <= SDNE_UPDATE_RTOL:
+            fail(f"SDNE {mode} over the mesh: updates differ from the "
+                 f"CPU's by {ratio} (L2, relative)")
+        lines.append(f"SDNE {mode} mesh trainer (3 steps): card against the "
+                     f"CPU at world 2, losses max abs err {loss_err:.3e} "
+                     f"(rtol {SDNE_LOSS_RTOL}), updates' relative L2 error "
+                     f"{ratio:.3e} (bound {SDNE_UPDATE_RTOL})")
+    return lines
+
+
+def mesh_world2_rank(info, tmp):
+    """Phases 25-26, in each of two spawned gloo ranks on one card."""
+    import torch
+
+    from graphembedding_tpu_torch import LINE, SDNE, DeepWalk
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = info.device
+    mesh = make_mesh((2, 1), device=dev)
+    mesh12 = make_mesh((1, 2), device=dev)
+    di = mesh.get_local_rank("data")
+    ds = load_dataset("wiki")
+    model = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+    t0 = time.perf_counter()
+    lines = mesh_chunks(dev, ds, model.walks, mesh, mesh12, di)
+    lines.append(f"chunks' phase {time.perf_counter() - t0:.1f} s")
+
+    sgns_kw = dict(embed_size=128, window_size=5, iter=3, mesh=mesh)
+    runs = []
+    run = mesh_train("DeepWalk rowshard, world 2 (gloo)", "rowshard",
+                     lambda m: m.train(**sgns_kw), model, ds, SGNS_STEP)
+    run["rate"] = model.trained_pairs / run["train_s"]
+    reference = (model.w_in.clone(), model.w_out.clone())
+    runs.append(run)
+    run = mesh_train("DeepWalk dp, world 2 (gloo)", "dp", lambda m: m.train(
+        parallel_mode="dp", **sgns_kw), model, ds, DP_STEP)
+    run["rate"] = model.trained_pairs / run["train_s"]
+    runs.append(run)
+    run = mesh_train("DeepWalk hs=1, world 2 (gloo)", "hs", lambda m: m.train(
+        hs=1, **sgns_kw), model, ds, HS_STEP)
+    run["rate"] = model.trained_pairs / run["train_s"]
+    runs.append(run)
+    line = LINE(ds.graph, embedding_size=128, order="second", device=dev)
+    run = mesh_train("LINE order 'second', world 2 (gloo)", "line",
+                     lambda m: m.train(batch_size=1024, epochs=50, mesh=mesh),
+                     line, ds, LINE_STEP)
+    run["rate"] = line.sampled_edges / run["train_s"]
+    runs.append(run)
+    sdne = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
+    run = mesh_train("SDNE full batch, world 2 (gloo)", "sdne",
+                     lambda m: m.train(batch_size=3000, epochs=40, mesh=mesh),
+                     sdne, ds, NO_KERNEL)
+    run["rate"] = ds.graph.num_nodes * 40 / run["train_s"]
+    runs.append(run)
+
+    # 26. the rowshard fit cut after its second chunk, then resumed
+    class Cut(Exception):
+        pass
+
+    class CutAfter:
+        def log(self, **kw):
+            if kw["step"] > 128:
+                raise Cut()
+
+    try:
+        model.train(checkpoint_dir=tmp, checkpoint_every=1,
+                    metrics=CutAfter(), **sgns_kw)
+        fail("the cut run was not cut")
+    except Cut:
+        pass
+    _, launches = counted(lambda: model.train(checkpoint_dir=tmp, **sgns_kw))
+    torch.cuda.synchronize()
+    steps = model.losses.shape[0]
+    if not (torch.equal(model.w_in, reference[0])
+            and torch.equal(model.w_out, reference[1])):
+        fail("the resumed rowshard fit differs from the uninterrupted one")
+    if steps != 64 or launches != {k: n * steps for k, n in
+                                   SGNS_STEP.items()}:
+        fail(f"the resumed rowshard fit: {steps} steps, launches {launches}")
+    lines.append(f"restart: the rowshard fit cut after chunk 2 and resumed "
+                 f"from {sorted(os.listdir(tmp))}: tables torch.equal to the "
+                 f"uninterrupted fit; the resumed run {steps} steps, "
+                 f"launches {launches}")
+    return dict(lines=lines, runs=runs)
+
+
+def mesh_phases(card):
+    """Phases 24-26: the mesh trainers in spawned ranks on the card."""
+    import tempfile
+
+    import torch
+
+    from graphembedding_tpu_torch.parallel.launch import run_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def report(runs_by_rank):
+        """Rank 0's runs, each with every rank's launches; the ranks'
+        micro-F1 must agree (their tables are the same) and clear the
+        run's gate."""
+        for i, run in enumerate(runs_by_rank[0]):
+            ranks = [rr[i] for rr in runs_by_rank]
+            gate = MESH_MIN_MICRO_F1[run["gate"]]
+            print(f"{run['what']}: train {run['train_s']:.3f} s, "
+                  f"{run['rate']:.4e} a s ({run['steps']} steps), launches "
+                  f"on each rank {[r['launches'] for r in ranks]}, micro-F1 "
+                  f"{run['f1']:.4f} (gate {gate}) [{card}]", flush=True)
+            if any(r["f1"] != run["f1"] for r in ranks):
+                fail(f"{run['what']}: ranks' micro-F1 differ: "
+                     f"{[r['f1'] for r in ranks]}")
+            if not run["f1"] >= gate:
+                fail(f"{run['what']}: micro-F1 {run['f1']:.4f} < {gate}")
+
+    t0 = time.perf_counter()
+    [w1] = run_ranks(mesh_world1_rank, 1, backend="nccl", device="cuda:0",
+                     threads=4, timeout_s=300)
+    print(w1["chunk"], f"[{card}]", flush=True)
+    report([w1["runs"]])
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ge_mesh_") as tmp:
+        w2 = run_ranks(mesh_world2_rank, 2, tmp, backend="gloo",
+                       device="cuda:0", threads=4, timeout_s=500)
+    for line in w2[0]["lines"]:
+        print(line, f"[{card}]", flush=True)
+    report([w["runs"] for w in w2])
+    print(f"phases 25-26: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Shared example plumbing: the command line, evaluation and the t-SNE plot.
 
 Counterpart of the JAX package's `examples/common.py`, with `--device` in
-place of `--mesh` (multi-device training is not ported).
+place of `--mesh` (the examples train on one device; `train(mesh=)` is
+driven from code, see `graphembedding_tpu_torch.parallel`).
 """
 
 from __future__ import annotations

@@ -31,6 +31,23 @@ def tables_to_numpy(w_cat):
     return a[:, :D].copy(), a[:, D:].copy()
 
 
+def rowshard_tables_from_jax(w_cat, n):
+    """The JAX package's padded [n * Vp, 2D] row-sharded table -> the n
+    ranks' float32 CPU shards, rank r's rows [r * Vp, (r + 1) * Vp)."""
+    a = np.asarray(w_cat, dtype=np.float32)
+    if a.shape[0] % n:
+        raise ValueError(f"{a.shape[0]} rows do not split over {n} ranks")
+    return [torch.from_numpy(p.copy()) for p in np.split(a, n)]
+
+
+def rowshard_tables_to_numpy(shards):
+    """The ranks' [Vp, 2D] shards, in rank order -> the padded [n * Vp, 2D]
+    float32 numpy table of the JAX package's layout."""
+    return np.concatenate([np.asarray(
+        s.detach().cpu().numpy() if isinstance(s, torch.Tensor) else s,
+        dtype=np.float32) for s in shards])
+
+
 def line_tables_from_jax(first_emb, second_emb, context_emb):
     """A JAX `LINE`'s first_emb, second_emb and context_emb -> three
     float32 CPU tensors, to assign to the port's `LINE` of the same name

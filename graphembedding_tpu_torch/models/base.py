@@ -5,7 +5,10 @@ trainer, the hierarchical-softmax trainer with `hs=1`, or the closed-form
 expected-SGNS fit with `trainer='dense'`. The first two take
 `checkpoint_dir=` / `checkpoint_every=` (resume from the checkpoint in the
 directory, bit-identical to an uninterrupted train) and `metrics=` (a
-`utils.metrics.MetricsLogger`, one line a chunk). Models accept a
+`utils.metrics.MetricsLogger`, one line a chunk). Both take `mesh=` (a
+`parallel.mesh.Mesh`: every rank's process calls `train` on its own model,
+and the walks of rank 0 are trained; `parallel_mode='rowshard'` or `'dp'`
+for SGNS, data- and tensor-parallel chunks for hs=1). Models accept a
 networkx graph or a `graphembedding_tpu_torch.Graph`, and run on the
 `device` they are given: the CUDA card by default, the CPU only when the
 caller asks for it.
@@ -19,6 +22,9 @@ from typing import Dict, Optional
 import torch
 
 from graphembedding_tpu_torch.graph import Graph
+from graphembedding_tpu_torch.parallel.trainer import (
+    DistributedSkipGramTrainer,
+)
 from graphembedding_tpu_torch.train.dense import DenseSGNSTrainer
 from graphembedding_tpu_torch.train.hsoftmax import HSTrainer
 from graphembedding_tpu_torch.train.skipgram import (
@@ -28,8 +34,7 @@ from graphembedding_tpu_torch.train.skipgram import (
 
 # options of the JAX package's trainer that the port does not have
 _NOT_PORTED = ("cap_mode", "shuffle_mode", "use_pallas", "matmul_bf16",
-               "stale_groups", "rowshard_prefetch", "dp_sync_every",
-               "parallel_mode")
+               "stale_groups")
 
 
 def as_graph(graph) -> Graph:
@@ -69,17 +74,15 @@ class WalkEmbeddingModel:
     def _fit_skipgram(self, embed_size=128, window_size=5, workers=None,
                       iter=5, negative=5, alpha=0.025, min_alpha=1e-4,
                       block_walks=None, k_shared=64, sample=1e-3, mesh=None,
-                      hs=0, trainer="block", checkpoint_dir=None,
-                      checkpoint_every=0, metrics=None, **kwargs):
+                      parallel_mode="rowshard", hs=0, trainer="block",
+                      checkpoint_dir=None, checkpoint_every=0, metrics=None,
+                      **kwargs):
         del workers
         if trainer == "dense":
             return self._fit_dense(embed_size, window_size, negative, hs,
                                    mesh, checkpoint_dir, metrics, kwargs)
         if trainer != "block":
             raise ValueError(f"unknown trainer {trainer!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported to graphembedding_tpu_torch")
         for name in _NOT_PORTED:
             if name in kwargs:
                 raise NotImplementedError(
@@ -93,7 +96,8 @@ class WalkEmbeddingModel:
             hst = HSTrainer(embed_size=embed_size,
                             window=kwargs.get("window", window_size),
                             epochs=kwargs.get("epochs", iter), alpha=alpha,
-                            min_alpha=min_alpha, sample=sample, seed=seed)
+                            min_alpha=min_alpha, sample=sample, seed=seed,
+                            mesh=mesh)
             self.w_in, self.w_out, self.losses = hst.fit(
                 self.walks, self.graph.num_nodes, seed=seed + 1, **fit_kw)
             self.trained_pairs = hst.trained_pairs_
@@ -111,11 +115,17 @@ class WalkEmbeddingModel:
             cfg_kw["block_walks"] = block_walks
         cfg_kw.update({k: v for k, v in kwargs.items() if k in cfg_fields})
         cfg = SkipGramConfig(**cfg_kw)
-        sgns = SkipGramTrainer(cfg)
-        w_cat, self.losses = sgns.fit(self.walks, self.graph.num_nodes,
-                                      seed=cfg.seed + 1, **fit_kw)
-        D = cfg.embed_size
-        self.w_in, self.w_out = w_cat[:, :D], w_cat[:, D:]
+        if mesh is not None:
+            sgns = DistributedSkipGramTrainer(mesh, cfg, mode=parallel_mode)
+            self.w_in, self.w_out, self.losses = sgns.fit(
+                self.walks, self.graph.num_nodes, seed=cfg.seed + 1,
+                **fit_kw)
+        else:
+            sgns = SkipGramTrainer(cfg)
+            w_cat, self.losses = sgns.fit(self.walks, self.graph.num_nodes,
+                                          seed=cfg.seed + 1, **fit_kw)
+            D = cfg.embed_size
+            self.w_in, self.w_out = w_cat[:, :D], w_cat[:, D:]
         self.trained_pairs = sgns.trained_pairs_
         self._embeddings = None
         return self

@@ -20,7 +20,8 @@ class DeepWalk(WalkEmbeddingModel):
         for name, value in (("mesh", mesh), ("walk_exchange", walk_exchange)):
             if value is not None:
                 raise NotImplementedError(
-                    f"{name}= is not ported to graphembedding_tpu_torch")
+                    f"the constructor's {name}= (distributed walks) is not "
+                    f"ported to graphembedding_tpu_torch; train(mesh=) is")
         super().__init__(graph, walk_length, num_walks, seed, device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)

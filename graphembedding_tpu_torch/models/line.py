@@ -30,8 +30,10 @@ stream an order, as the sampled trainer's draws do.
 The sampled trainer checkpoints and resumes each order in a subdirectory
 of `checkpoint_dir` (`line_train`), bit-identical to an uninterrupted run.
 
-Not ported: `mesh=` and `sync_every=`; each raises NotImplementedError with
-the sampled trainer (the dense one ignores them, as in the JAX package).
+`train(mesh=m, sync_every=k)` runs the sampled trainer data-parallel over a
+(n, 1) mesh (`parallel/line.py`): batch_size is the global batch, each rank
+draws its share from a stream of its own and checkpoints its own file; the
+dense trainer ignores both, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,13 +49,27 @@ from graphembedding_tpu_torch.models.base import as_graph, model_device
 from graphembedding_tpu_torch.ops.alias import build_alias_table
 from graphembedding_tpu_torch.ops.rows import ROW_KERNELS, ROW_PLAIN
 from graphembedding_tpu_torch.ops.spmm import adjacency
+from graphembedding_tpu_torch.parallel.line import (
+    local_batch,
+    sharded_line_chunk,
+)
+from graphembedding_tpu_torch.parallel.mesh import (
+    check_mesh,
+    put_global,
+    rank_seed,
+)
 from graphembedding_tpu_torch.train.dense import (
     DenseSGNSConfig,
     dense_fit,
     initial_table,
 )
 from graphembedding_tpu_torch.train.skipgram import inverse_cdf_table
-from graphembedding_tpu_torch.utils.checkpoint import maybe_save, try_restore
+from graphembedding_tpu_torch.utils.checkpoint import (
+    maybe_save,
+    save_sharded,
+    try_restore,
+    try_restore_sharded,
+)
 
 # steps a chunk of draws covers; a run is whole chunks, as in the JAX package
 CHUNK_STEPS = 512
@@ -187,7 +203,7 @@ def line_train_chunk(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
 def line_train(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
                neg_table, generator, lr0, *, n_steps, batch_size, negative,
                k_shared=0, update_cap=8.0, ops=KERNELS, checkpoint_dir=None,
-               checkpoint_every=0):
+               checkpoint_every=0, mesh=None, sync_every=None):
     """A full run as ceil(n_steps / CHUNK_STEPS) whole chunks, as the JAX
     package runs it: steps past n_steps train at the floor learning rate
     lr0 * 1e-4. Returns (emb, ctx, losses [CHUNK_STEPS * chunks this call
@@ -200,11 +216,22 @@ def line_train(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
     uninterrupted one bit for bit. Order 'first' has no context table, and
     its checkpoint holds ctx None (the JAX package's holds a [1, D]
     placeholder).
+
+    mesh: the chunks run data-parallel (`parallel.line.sharded_line_chunk`),
+    batch_size is global and `generator` is this rank's; each rank saves and
+    restores its own file (`utils.checkpoint.save_sharded`).
     """
     n_chunks = max((n_steps + CHUNK_STEPS - 1) // CHUNK_STEPS, 1)
     resume_chunk = 0
-    state = (try_restore(checkpoint_dir, LINE_STATE_KEYS)
-             if checkpoint_dir else None)
+    if mesh is None:
+        state = (try_restore(checkpoint_dir, LINE_STATE_KEYS)
+                 if checkpoint_dir else None)
+    else:
+        b_local = local_batch(mesh, batch_size)
+        template = dict.fromkeys(LINE_STATE_KEYS)
+        template["emb"] = emb
+        state = (try_restore_sharded(checkpoint_dir, template, mesh)
+                 if checkpoint_dir else None)
     if state is not None:
         emb = state["emb"].to(emb.device)
         ctx = None if state["ctx"] is None else state["ctx"].to(emb.device)
@@ -212,16 +239,26 @@ def line_train(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
         resume_chunk = int(state["chunk"])
     losses = []
     for c in range(resume_chunk, n_chunks):
-        emb, ctx, lc = line_train_chunk(
-            emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,
-            neg_table, generator, lr0, c * CHUNK_STEPS, float(n_steps),
-            chunk_steps=CHUNK_STEPS, batch_size=batch_size,
-            negative=negative, k_shared=k_shared, update_cap=update_cap,
-            ops=ops)
+        draws = (edge_src, edge_dst, edge_accept, edge_alias, neg_table,
+                 generator, lr0, c * CHUNK_STEPS, float(n_steps))
+        kw = dict(negative=negative, k_shared=k_shared,
+                  update_cap=update_cap, ops=ops)
+        if mesh is None:
+            emb, ctx, lc = line_train_chunk(
+                emb, ctx, *draws, chunk_steps=CHUNK_STEPS,
+                batch_size=batch_size, **kw)
+        else:
+            emb, ctx, lc = sharded_line_chunk(
+                emb, ctx, *line_bulk_samples(
+                    *draws, chunk_steps=CHUNK_STEPS, batch_size=b_local,
+                    negative=negative, k_shared=k_shared),
+                mesh=mesh, sync_every=sync_every, **kw)
         losses.append(lc)
         maybe_save(checkpoint_dir, checkpoint_every, c + 1,
                    lambda: {"emb": emb, "ctx": ctx, "chunk": c + 1,
-                            "rng": generator.get_state()})
+                            "rng": generator.get_state()},
+                   save=None if mesh is None else
+                   (lambda p, st: save_sharded(p, st, mesh)))
     if not losses:  # fully resumed past the end
         return emb, ctx, torch.zeros(0, device=emb.device)
     return emb, ctx, torch.cat(losses)
@@ -292,10 +329,12 @@ class LINE:
             return self._train_dense(steps=steps, lr=lr)
         if trainer != "sampled":
             raise ValueError(f"unknown trainer {trainer!r}")
-        for name, value in (("mesh", mesh), ("sync_every", sync_every)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported to graphembedding_tpu_torch")
+        if mesh is not None:
+            check_mesh(mesh)
+            local_batch(mesh, batch_size)
+            # every rank starts from rank 0's tables
+            for name in ("first_emb", "second_emb", "context_emb"):
+                setattr(self, name, put_global(getattr(self, name), mesh))
         g = self.graph
         n_steps = max(int(round(epochs * times * g.num_edges / batch_size)),
                       1)
@@ -303,7 +342,8 @@ class LINE:
                   negative=self.negative_ratio,
                   k_shared=min(self.k_shared, g.num_nodes),
                   update_cap=self.update_cap,
-                  checkpoint_every=checkpoint_every)
+                  checkpoint_every=checkpoint_every, mesh=mesh,
+                  sync_every=sync_every)
         edges = (self._edge_src, self._edge_dst, self._edge_accept,
                  self._edge_alias, self._neg_table)
 
@@ -316,13 +356,14 @@ class LINE:
         # folds the order into its key
         if self.order in ("first", "all"):
             self.first_emb, _, self.losses = line_train(
-                self.first_emb, None, *edges, self._generator(0), initial_lr,
+                self.first_emb, None, *edges, self._generator(0, mesh),
+                initial_lr,
                 checkpoint_dir=order_dir("first"), **kw)
             self.sampled_edges += self.losses.shape[0] * batch_size
         if self.order in ("second", "all"):
             self.second_emb, self.context_emb, self.losses = line_train(
                 self.second_emb, self.context_emb, *edges,
-                self._generator(1), initial_lr,
+                self._generator(1, mesh), initial_lr,
                 checkpoint_dir=order_dir("second"), **kw)
             self.sampled_edges += self.losses.shape[0] * batch_size
         self._embeddings = None
@@ -356,9 +397,12 @@ class LINE:
         self._embeddings = None
         return self
 
-    def _generator(self, stream):
-        return torch.Generator(device=self.device).manual_seed(
-            2 * (self.seed + 1) + stream)
+    def _generator(self, stream, mesh=None):
+        """The draws of one order; over a mesh, this data rank's."""
+        seed = 2 * (self.seed + 1) + stream
+        if mesh is not None:
+            seed = rank_seed(seed, mesh.get_local_rank("data"))
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     @property
     def embedding_table(self) -> torch.Tensor:

@@ -26,7 +26,8 @@ class Node2Vec(WalkEmbeddingModel):
         del workers  # reference API parity
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= is not ported to graphembedding_tpu_torch")
+                "the constructor's mesh= (distributed walks) is not ported "
+                "to graphembedding_tpu_torch; train(mesh=) is")
         super().__init__(graph, walk_length, num_walks, seed, device)
         self.p = p
         self.q = q

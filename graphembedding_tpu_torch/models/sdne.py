@@ -32,8 +32,10 @@ orientation. Every product runs in full float32 (matmul precision
 bit-identical from run to run.
 
 The three trainers checkpoint and resume (`SDNE._run_checkpointed`),
-bit-identical to an uninterrupted train. Not ported: `mesh=` raises
-NotImplementedError.
+bit-identical to an uninterrupted train. `train(mesh=m)` (full batch only,
+as in the JAX package) and `train_sparse(mesh=m)` shard the adjacency's rows
+over a (n, 1) mesh with exact data parallelism (`parallel/sdne.py`), each
+rank checkpointing its own file.
 """
 
 from __future__ import annotations
@@ -53,7 +55,19 @@ from graphembedding_tpu_torch.ops.spmm import (
     laplacian_quadratic,
     spmm,
 )
-from graphembedding_tpu_torch.utils.checkpoint import save_state, try_restore
+from graphembedding_tpu_torch.parallel.mesh import check_mesh, put_global
+from graphembedding_tpu_torch.parallel.sdne import (
+    pad_sparse_inputs,
+    shard_dense,
+    sharded_sdne_sparse_train,
+    sharded_sdne_train,
+)
+from graphembedding_tpu_torch.utils.checkpoint import (
+    save_sharded,
+    save_state,
+    try_restore,
+    try_restore_sharded,
+)
 from graphembedding_tpu_torch.utils.precision import f32_matmul
 
 # what a checkpoint of an SDNE trainer holds (the minibatch loop's also its
@@ -200,13 +214,6 @@ def minibatch_epoch(net, opt, A, L, perm, batch_size, alpha, beta, nu1,
         for idx in idx_all]
 
 
-def _not_ported(**options):
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported to graphembedding_tpu_torch")
-
-
 class SDNE:
     def __init__(self, graph, hidden_size=None, alpha=1e-6, beta=5.0,
                  nu1=1e-5, nu2=1e-4, seed=0, device="cuda"):
@@ -285,14 +292,30 @@ class SDNE:
         the minibatch loop. A fresh Adam each call, as in the JAX package.
         checkpoint_dir / checkpoint_every: see `_run_checkpointed`; the
         minibatch loop's checkpoints also hold its permutation generator's
-        state."""
+        state. mesh: the full batch's rows sharded over the data axis
+        (`parallel/sdne.py`); the minibatch loop stays single-device."""
         del initial_epoch, verbose
-        _not_ported(mesh=mesh)
         V = self.graph.num_nodes
+        if mesh is not None:
+            self._on_mesh(mesh)
+            if batch_size < V:
+                raise NotImplementedError(
+                    "mesh= shards the full-batch mode (batch_size >= node "
+                    "count); the minibatch loop's L[idx][:, idx] coupling "
+                    "depends on the batch and stays single-device")
         opt = self._adam(learning_rate)
         A, L = self.A, self.L
         consts = self._consts()
-        if batch_size >= V:
+        if mesh is not None:
+            shards = shard_dense(A, L, mesh, V)
+
+            def run_epochs(n):
+                return sharded_sdne_train(
+                    self.net, opt, *shards, mesh=mesh, num_nodes=V,
+                    alpha=self.alpha, beta=self.beta, nu1=self.nu1,
+                    nu2=self.nu2, n_epochs=n)
+            gen = None
+        elif batch_size >= V:
             def run_epochs(n):
                 return [adam_step(opt, lambda: sdne_loss(
                     self.net, A, L, *consts)) for _ in range(n)]
@@ -308,26 +331,47 @@ class SDNE:
                                               batch_size, *consts)
                 return losses
         return self._trained(self._run_checkpointed(
-            run_epochs, opt, epochs, checkpoint_dir, checkpoint_every, gen))
+            run_epochs, opt, epochs, checkpoint_dir, checkpoint_every, gen,
+            mesh))
 
     def train_sparse(self, epochs=1, learning_rate=1e-3, row_chunk=512,
                      checkpoint_dir=None, checkpoint_every=0, mesh=None):
         """The full-batch objective without dense [V, V] matrices (see the
         module docstring); one Adam step an epoch. checkpoint_dir /
-        checkpoint_every: see `_run_checkpointed`."""
-        _not_ported(mesh=mesh)
-        inputs = self.sparse_inputs()
+        checkpoint_every: see `_run_checkpointed`. mesh: the rows sharded
+        over the data axis (`parallel/sdne.py`)."""
         opt = self._adam(learning_rate)
         consts = self._consts()
+        if mesh is not None:
+            self._on_mesh(mesh)
+            inputs = pad_sparse_inputs(self.graph, mesh, self.device)
 
-        def run_epochs(n):
-            return [adam_step(opt, lambda: sparse_sdne_loss(
-                self.net, inputs, *consts, row_chunk)) for _ in range(n)]
+            def run_epochs(n):
+                return sharded_sdne_sparse_train(
+                    self.net, opt, inputs, mesh=mesh,
+                    num_nodes=self.graph.num_nodes, alpha=self.alpha,
+                    beta=self.beta, nu1=self.nu1, nu2=self.nu2, n_epochs=n,
+                    row_chunk=row_chunk)
+        else:
+            inputs = self.sparse_inputs()
+
+            def run_epochs(n):
+                return [adam_step(opt, lambda: sparse_sdne_loss(
+                    self.net, inputs, *consts, row_chunk))
+                    for _ in range(n)]
         return self._trained(self._run_checkpointed(
-            run_epochs, opt, epochs, checkpoint_dir, checkpoint_every))
+            run_epochs, opt, epochs, checkpoint_dir, checkpoint_every,
+            mesh=mesh))
+
+    def _on_mesh(self, mesh):
+        """Check the mesh and start every rank from rank 0's parameters."""
+        check_mesh(mesh)
+        with torch.no_grad():
+            for p in self.net.parameters():
+                p.copy_(put_global(p, mesh))
 
     def _run_checkpointed(self, run_epochs, opt, epochs, checkpoint_dir,
-                          checkpoint_every, gen=None):
+                          checkpoint_every, gen=None, mesh=None):
         """Run `epochs` epochs by `run_epochs(n)` (which returns the steps'
         losses) with checkpoint and resume, the JAX package's
         `_run_checkpointed`: with `checkpoint_dir` and `checkpoint_every`,
@@ -342,8 +386,15 @@ class SDNE:
         permutations there differ from its run without checkpoints)."""
         start = 0
         keys = SDNE_STATE_KEYS + (("rng",) if gen is not None else ())
-        state = (try_restore(checkpoint_dir, keys) if checkpoint_dir
-                 else None)
+        if mesh is None:
+            restore, save = try_restore, save_state
+        else:  # over a mesh: a file a rank
+            def restore(path, keys):
+                return try_restore_sharded(path, dict.fromkeys(keys), mesh)
+
+            def save(path, state):
+                save_sharded(path, state, mesh)
+        state = restore(checkpoint_dir, keys) if checkpoint_dir else None
         if state is not None:
             self.net.load_state_dict(state["params"])
             opt.load_state_dict(state["opt_state"])
@@ -359,7 +410,7 @@ class SDNE:
                 losses += run_epochs(n)
                 e += n
                 if every:
-                    save_state(checkpoint_dir, {
+                    save(checkpoint_dir, {
                         "params": self.net.state_dict(),
                         "opt_state": opt.state_dict(), "epoch": e,
                         **({"rng": gen.get_state()} if gen is not None

@@ -18,7 +18,9 @@ or a failed build raises. The Python pipeline (`_bfs_degree_lists`,
 `_dtw`, `_fastdtw`) computes them for `opt1_reduce_len=False`, which the
 C++ path does not cover, and is the tests' oracle.
 
-Not ported: `mesh=` (raises NotImplementedError).
+`train(mesh=m)` trains over a mesh (`parallel/`), the corpus replicated on
+every rank; the constructor's `mesh=`, which the JAX package uses to shard
+the walks, still raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -485,7 +487,8 @@ class Struc2Vec(WalkEmbeddingModel):
         del verbose
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= is not ported to graphembedding_tpu_torch")
+                "the constructor's mesh= (distributed walks) is not ported "
+                "to graphembedding_tpu_torch; train(mesh=) is")
         super().__init__(graph, walk_length, num_walks, seed, device)
         self.stay_prob = stay_prob
 

@@ -32,14 +32,18 @@ _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may opt into
 _MAX_CLUSTER = 8  # portable thread-block cluster size: r groups a cluster
 
 
-def sgns_block_grads_plain(yin, yout, vn, mask, neg_ok, neg_w):
+def sgns_block_grads_plain(yin, yout, vn, mask, neg_ok, neg_w, reduce=None):
+    """K1's function. `reduce`, when given, completes partial logits (the
+    products over a column slice of the rows) before the sigmoid: the
+    mesh's tensor-parallel step sums them over its model axis."""
     G, PL, D = yin.shape
     G2 = vn.shape[0]
     r = G // G2
-    logits = torch.einsum("gld,gmd->glm", yin, yout)
+    reduce = reduce or (lambda x: x)
+    logits = reduce(torch.einsum("gld,gmd->glm", yin, yout))
     g_pos = (torch.sigmoid(logits) - 1.0) * mask
     yin_n = yin.reshape(G2, r * PL, D)
-    nlog = torch.einsum("gld,gkd->glk", yin_n, vn)
+    nlog = reduce(torch.einsum("gld,gkd->glk", yin_n, vn))
     np_w = (mask.sum(2).reshape(G2, r * PL) * neg_w)[:, :, None]
     g_neg = torch.sigmoid(nlog) * np_w * neg_ok
     d_yin = torch.einsum("glm,gmd->gld", g_pos, yout) + torch.einsum(

@@ -45,14 +45,15 @@ def _sym(graph):
     return src, dst, np.asarray(w, dtype=np.float32)
 
 
-def csr_from_edges(src, dst, w, num_nodes, device):
-    """[num_nodes, num_nodes] CSR with A[src_e, dst_e] += w_e on `device`,
-    duplicates summed: built on the CPU from a coalesced COO, then
-    moved."""
+def csr_from_edges(src, dst, w, num_nodes, device, num_cols=None):
+    """[num_nodes, num_cols (default num_nodes)] CSR with A[src_e, dst_e] +=
+    w_e on `device`, duplicates summed: built on the CPU from a coalesced
+    COO, then moved."""
     idx = torch.from_numpy(np.stack([src, dst]).astype(np.int64))
     coo = torch.sparse_coo_tensor(
         idx, torch.from_numpy(np.asarray(w, dtype=np.float32)),
-        (num_nodes, num_nodes), check_invariants=True).coalesce()
+        (num_nodes, num_cols or num_nodes),
+        check_invariants=True).coalesce()
     return coo.to_sparse_csr().to(device)
 
 

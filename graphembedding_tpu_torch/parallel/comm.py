@@ -1,0 +1,57 @@
+"""The collectives of the mesh trainers: all-gather, all-to-all and a sum.
+
+Three operations of `torch.distributed`, and no other, carry every
+exchange: `all_gather_into_tensor` (named `all_gather_single` where torch
+has that name), `all_to_all_single` and `all_reduce` with SUM. Gloo (torch
+2.13) takes all three for CPU tensors.
+
+Host staging is a rule by backend, never a retry: when a group's backend
+is gloo, a CUDA tensor is copied to the host, exchanged there and copied
+back, every time (gloo's all-to-all has no CUDA path). NCCL gets the
+tensors as they are. So two gloo ranks on one card exercise the same
+exchanges as NCCL ranks on cards of their own, with the kernels on the
+card, at the cost of the copies.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+_all_gather_single = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def _staged(x, group):
+    """x as the group's backend takes it: on the host for gloo."""
+    if dist.get_backend(group) == "gloo" and x.device.type != "cpu":
+        return x.cpu()
+    return x
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """[n, *x.shape]: block i is rank i's x (ranks of `group` in order);
+    x has at least one dimension."""
+    src = _staged(x.contiguous(), group)
+    n = dist.get_world_size(group)
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=src.device)
+    _all_gather_single(out, src, group=group)
+    return out.view(n, *x.shape).to(x.device)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """x [n, ...]: block j goes to rank j; returns [n, ...] whose block i
+    came from rank i."""
+    src = _staged(x.contiguous(), group)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the ranks of `group` (a new tensor)."""
+    src = _staged(x.contiguous(), group)
+    out = src.clone() if src is x else src
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out.to(x.device)

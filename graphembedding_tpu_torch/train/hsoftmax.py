@@ -25,8 +25,9 @@ test can hand it the JAX package's draws; `HSTrainer.fit` makes them with
 a `torch.Generator`, and checkpoints, resumes and logs metrics as
 `SkipGramTrainer.fit` does.
 
-Not ported: the sparse cap form (the dense form computes the same update
-at any V), `mesh=`/`sync_every=`.
+`HSTrainer(mesh=, sync_every=)` trains over a mesh
+(`parallel/hsoftmax.py`). Not ported: the sparse cap form (the dense form
+computes the same update at any V).
 """
 
 from __future__ import annotations
@@ -45,9 +46,16 @@ from graphembedding_tpu_torch.train.skipgram import (
     fit_block_walks,
     keep_per_token,
     prepare_epoch,
+    step_lrs,
+    window_draws,
     window_geometry,
 )
-from graphembedding_tpu_torch.utils.checkpoint import maybe_save, try_restore
+from graphembedding_tpu_torch.utils.checkpoint import (
+    maybe_save,
+    save_sharded,
+    try_restore,
+    try_restore_sharded,
+)
 from graphembedding_tpu_torch.utils.debug import (
     validate_walks,
     validation_enabled,
@@ -112,12 +120,15 @@ KERNELS, PLAIN = ROW_KERNELS, ROW_PLAIN
 
 
 def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
-            update_cap, ops=KERNELS):
+            update_cap, ops=KERNELS, reduce=None):
     """One HS step with the dense update cap; updates w_in [V, D] and
     w_tree [n_inner, D] in place.
 
     tok [G, PL] token ids (-1 pads), eff_b [G, PL] window draws, points /
-    codes [V, T] the tree paths. Returns (loss, pairs) as 0-d tensors.
+    codes [V, T] the tree paths. `reduce`, when given, completes partial
+    logits (over a column slice of the tables) before the sigmoid: the
+    mesh's tensor-parallel step sums them over its model axis. Returns
+    (loss, pairs) as 0-d tensors.
     """
     G, PL = tok.shape
     V, D = w_in.shape
@@ -136,6 +147,8 @@ def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
             & tok_ok[:, :, None] & tok_ok[:, None, :]).to(torch.float32)
     # logits of every (center l, context m, level t) over n = m * T + t
     logits = torch.bmm(yin, ptv.transpose(1, 2))  # [G, PL, N]
+    if reduce is not None:
+        logits = reduce(logits)
     gate_n = (mask[:, :, :, None] * pts_ok[:, None, :, :]).reshape(G, PL, N)
     gmat = (label.reshape(G, 1, N) - torch.sigmoid(logits)) * gate_n
     d_yin = torch.bmm(gmat, ptv)  # [G, PL, D]
@@ -187,15 +200,11 @@ def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
     if tuple(eff.shape) != (S, geo.G, geo.PL):
         raise ValueError(f"draws eff {tuple(eff.shape)} do not match {geo}")
     window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    steps = np.int32(t0) + np.arange(S, dtype=np.int32)
-    lrs = np.maximum(
-        np.float32(min_alpha),
-        np.float32(alpha) * (np.float32(1.0) - steps.astype(np.float32)
-                             / np.float32(total_steps)))
+    lrs = step_lrs(t0, S, alpha, min_alpha, total_steps)
     losses, pairs = [], []
     with f32_matmul():
         for s in range(S):
-            off = int(steps[s] % geo.n_blocks) * geo.Bw
+            off = (t0 + s) % geo.n_blocks * geo.Bw
             tok = walks[off: off + geo.Bw].reshape(geo.G, geo.PL)
             loss, p = hs_step(w_in, w_tree, tok, eff[s], points, codes,
                               float(lrs[s]), window_ok=window_ok, dm=dm,
@@ -207,14 +216,13 @@ def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
 
 class HSTrainer:
     """Hierarchical-softmax skip-gram fit (reference hs=1 semantics) over
-    a walk corpus on the corpus' device."""
+    a walk corpus on the corpus' device, or over a `parallel.mesh.Mesh`
+    (`mesh=`: data- and tensor-parallel chunks, `parallel/hsoftmax.py`,
+    the replicas synced every `sync_every` steps)."""
 
     def __init__(self, embed_size=128, window=5, epochs=5, block_walks=504,
                  alpha=0.025, min_alpha=1e-4, chunk_steps=64, update_cap=8.0,
-                 sample=1e-3, seed=0, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported to graphembedding_tpu_torch")
+                 sample=1e-3, seed=0, mesh=None, sync_every=None):
         self.embed_size = embed_size
         self.window = window
         self.epochs = epochs
@@ -225,7 +233,25 @@ class HSTrainer:
         self.update_cap = update_cap
         self.sample = sample  # gensim-default frequent-node subsampling
         self.seed = seed
+        if mesh is not None:
+            from graphembedding_tpu_torch.parallel.mesh import check_mesh
+
+            check_mesh(mesh)
+        self.mesh = mesh
+        self.sync_every = sync_every
         self.trained_pairs_ = 0.0
+
+    def _mesh_block_walks(self, NW, L, n):
+        """The JAX trainer's block over n data ranks: whole packing groups
+        a rank, every rank's slice inside the corpus."""
+        if NW < n:
+            raise ValueError(
+                f"corpus has {NW} walks but the mesh data axis has {n} "
+                f"ranks; use a smaller mesh or more walks")
+        per = min(max(min(self.block_walks, max(NW // 4, n)) // n, 1),
+                  NW // n)
+        pk = max(min(max(128 // L, 1), per), 1)
+        return max((per // pk) * pk, pk) * n
 
     def fit(self, walks, num_nodes, seed=None, checkpoint_dir=None,
             checkpoint_every=0, metrics=None):
@@ -237,16 +263,44 @@ class HSTrainer:
         checkpoint_dir / checkpoint_every / metrics as in
         `SkipGramTrainer.fit`: the checkpoint holds w_in, w_tree, step and
         the generator's states, and the metrics lines are `hs_chunk`.
+
+        Over a mesh, every rank trains on rank 0's corpus and gets the full
+        tables back. The window draws come from a per-rank stream seeded
+        from (seed, data rank) (the JAX body folds them by rank); the table
+        and the shuffles from the shared stream. Each rank checkpoints its
+        own file (`utils.checkpoint.save_sharded`), with the per-rank
+        stream's state.
         """
+        mesh = self.mesh
+        if mesh is not None:
+            from graphembedding_tpu_torch.parallel.hsoftmax import (
+                sharded_hs_chunk,
+            )
+            from graphembedding_tpu_torch.parallel.mesh import (
+                put_global,
+                rank_seed,
+            )
+            from graphembedding_tpu_torch.parallel.sgns import dp_geometry
+
+            walks = put_global(walks, mesh)
         if validation_enabled():
             validate_walks(walks.cpu().numpy(), num_nodes)
         device = walks.device
+        seed = self.seed if seed is None else seed
         gen = torch.Generator(device=device)
-        gen.manual_seed(self.seed if seed is None else seed)
+        gen.manual_seed(seed)
         NW, L = walks.shape
-        # the JAX HSTrainer's block: no upscaling for large corpora
-        bw = fit_block_walks(NW, L, self.block_walks)
-        geo = block_geometry(NW, L, bw, 1)
+        if mesh is None:
+            # the JAX HSTrainer's block: no upscaling for large corpora
+            bw = fit_block_walks(NW, L, self.block_walks)
+            geo = block_geometry(NW, L, bw, 1)
+            draws = gen
+        else:
+            n, di = mesh.size("data"), mesh.get_local_rank("data")
+            bw = self._mesh_block_walks(NW, L, n)
+            geo = dp_geometry(NW, L, bw, n, 1)
+            draws = torch.Generator(device=device).manual_seed(
+                rank_seed(seed, di))
         chunks_per_epoch = max(
             (geo.n_blocks + self.chunk_steps - 1) // self.chunk_steps, 1)
         # the LR decays over the steps executed (whole chunks)
@@ -261,16 +315,29 @@ class HSTrainer:
         keep_tok = keep_per_token(walks, counts, self.sample)
 
         D = self.embed_size
-        state = (try_restore(checkpoint_dir, HS_STATE_KEYS)
-                 if checkpoint_dir else None)
-        if state is None:
-            w_in = (torch.rand((num_nodes, D), generator=gen, device=device)
-                    - 0.5) / D
-            w_tree = torch.zeros((max(num_nodes - 1, 1), D),
-                                 dtype=torch.float32, device=device)
+        w_in = (torch.rand((num_nodes, D), generator=gen, device=device)
+                - 0.5) / D
+        w_tree = torch.zeros((max(num_nodes - 1, 1), D),
+                             dtype=torch.float32, device=device)
+        if mesh is None:
+            state = (try_restore(checkpoint_dir, HS_STATE_KEYS)
+                     if checkpoint_dir else None)
         else:
+            m, mi = mesh.size("model"), mesh.get_local_rank("model")
+            if D % m:
+                raise ValueError(f"embed_size {D} does not split over the "
+                                 f"model axis ({m})")
+            cols = slice(mi * D // m, (mi + 1) * D // m)
+            w_in, w_tree = w_in[:, cols].clone(), w_tree[:, cols].clone()
+            template = dict.fromkeys(HS_STATE_KEYS + ("rng_rank",))
+            template.update(w_in=w_in, w_tree=w_tree)
+            state = (try_restore_sharded(checkpoint_dir, template, mesh)
+                     if checkpoint_dir else None)
+        if state is not None:
             w_in = state["w_in"].to(device)
             w_tree = state["w_tree"].to(device)
+            if mesh is not None:
+                draws.set_state(state["rng_rank"])
         resume = Resume(state)
         W, S = self.window, self.chunk_steps
         losses, pairs = [], []
@@ -288,13 +355,18 @@ class HSTrainer:
                 if t < resume.step:
                     t += S
                     continue
-                u = torch.rand((S, geo.G, geo.PL), generator=gen,
-                               device=device)
-                eff = W - (u * W).to(torch.int32).clamp(0, W - 1)
-                _, _, lc, pc = hs_block_chunk(
-                    w_in, w_tree, shuffled, points, codes, eff, self.alpha,
-                    self.min_alpha, t, total_steps, block_walks=bw,
-                    window=W, update_cap=self.update_cap)
+                eff = window_draws(draws, (S, geo.G, geo.PL), W)
+                args = (w_in, w_tree, shuffled, points, codes, eff,
+                        self.alpha, self.min_alpha, t, total_steps)
+                if mesh is None:
+                    _, _, lc, pc = hs_block_chunk(
+                        *args, block_walks=bw, window=W,
+                        update_cap=self.update_cap)
+                else:
+                    _, _, lc, pc = sharded_hs_chunk(
+                        *args, mesh=mesh, block_walks=bw, window=W,
+                        update_cap=self.update_cap,
+                        sync_every=self.sync_every)
                 losses.append(lc)
                 pairs.append(pc)
                 t += S
@@ -302,12 +374,25 @@ class HSTrainer:
                 if metrics is not None:
                     metrics.log(kind="hs_chunk", epoch=epoch, step=t,
                                 loss=round(float(lc.mean()), 5))
+
+                def state_now():
+                    st = {"w_in": w_in, "w_tree": w_tree, "step": t,
+                          "rng": gen.get_state(), "rng_epoch": rng_epoch}
+                    if mesh is not None:
+                        st["rng_rank"] = draws.get_state()
+                    return st
+
                 maybe_save(checkpoint_dir, checkpoint_every, n_chunk_calls,
-                           lambda: {"w_in": w_in, "w_tree": w_tree,
-                                    "step": t, "rng": gen.get_state(),
-                                    "rng_epoch": rng_epoch})
+                           state_now, save=None if mesh is None else
+                           (lambda p, st: save_sharded(p, st, mesh)))
         self.trained_pairs_ = (float(torch.cat(pairs).sum()) if pairs
                                else 0.0)
+        if mesh is not None and mesh.size("model") > 1:
+            from graphembedding_tpu_torch.parallel import comm
+
+            group = mesh.get_group("model")
+            w_in, w_tree = (torch.cat(list(comm.all_gather(t_, group)), 1)
+                            for t_ in (w_in, w_tree))
         if not losses:  # fully resumed past the end
             return w_in, w_tree, torch.zeros(0, device=device)
         return w_in, w_tree, torch.cat(losses)

@@ -64,6 +64,11 @@ class SkipGramConfig:
     sample: float = 1e-3  # frequent-node subsampling threshold; 0 off
     chunk_steps: int = 64  # steps per chunk of draws
     update_cap: float = 8.0  # per-row cap in sequential-update magnitudes
+    # over a mesh (parallel/trainer.py): 'rowshard' fetches step t+1's rows
+    # before step t's update lands; 'dp' syncs its replicas every this many
+    # steps (0: the default, 4)
+    rowshard_prefetch: bool = False
+    dp_sync_every: int = 4
     seed: int = 0
 
 
@@ -214,6 +219,21 @@ def window_geometry(L: int, PL: int, window: int, device):
     return window_ok, dm
 
 
+def step_masks(tok, eff_b, neg, window_ok, dm, nsp):
+    """Masks of one block: tok [G, PL] token ids (-1 pads), eff_b [G, PL]
+    window draws, neg [G2, K] negative ids. Returns (tok_safe, mask
+    [G, PL, PL], neg_ok [G2, nsp*PL, K]), the masks float32."""
+    G, PL = tok.shape
+    G2 = neg.shape[0]
+    tok_ok = tok >= 0
+    tok_safe = torch.where(tok_ok, tok, 0)
+    mask = (window_ok[None] & (dm[None] <= eff_b[:, :, None])
+            & tok_ok[:, :, None] & tok_ok[:, None, :]).to(torch.float32)
+    tok_n = tok_safe.reshape(G2, nsp * PL)
+    neg_ok = (neg[:, None, :] != tok_n[:, :, None]).to(torch.float32)
+    return tok_safe, mask, neg_ok
+
+
 def step_inputs(w_cat, tok, eff_b, neg, window_ok, dm, nsp, ops=KERNELS):
     """Gathered rows and masks of one block.
 
@@ -224,15 +244,38 @@ def step_inputs(w_cat, tok, eff_b, neg, window_ok, dm, nsp, ops=KERNELS):
     G, PL = tok.shape
     G2, K = neg.shape
     D = w_cat.shape[1] // 2
-    tok_ok = tok >= 0
-    tok_safe = torch.where(tok_ok, tok, 0)
+    tok_safe, mask, neg_ok = step_masks(tok, eff_b, neg, window_ok, dm, nsp)
     y = ops.gather(w_cat, tok_safe.reshape(-1)).view(G, PL, 2 * D)
     vn = ops.gather(w_cat[:, D:], neg.reshape(-1)).view(G2, K, D)
-    mask = (window_ok[None] & (dm[None] <= eff_b[:, :, None])
-            & tok_ok[:, :, None] & tok_ok[:, None, :]).to(torch.float32)
-    tok_n = tok_safe.reshape(G2, nsp * PL)
-    neg_ok = (neg[:, None, :] != tok_n[:, :, None]).to(torch.float32)
     return tok_safe, y, vn, mask, neg_ok
+
+
+def event_rows(d_yin, d_yout, d_vn, mask, neg_w):
+    """The rows of a step's two scatters, occupancy riding as the last
+    column: tokens [G*PL, 2D+1] = (d_yin | d_yout | 1), negatives
+    [G2*K, D+1] = (d_vn | its sharing group's n_pairs * neg_w)."""
+    G2, K, D = d_vn.shape
+    n_pairs = mask.sum(2)
+    neg_weight = (n_pairs.reshape(G2, -1) * neg_w).sum(1)[:, None].expand(
+        G2, K).reshape(-1)
+    ones = torch.ones((d_yin.shape[0] * d_yin.shape[1], 1),
+                      dtype=torch.float32, device=d_yin.device)
+    d_tok = torch.cat([d_yin.reshape(-1, D), d_yout.reshape(-1, D), ones], 1)
+    d_neg = torch.cat([d_vn.reshape(-1, D), neg_weight[:, None]], 1)
+    return d_tok, d_neg
+
+
+def capped_update(w_cat, tbuf, nbuf, lr, update_cap):
+    """w_cat [V, 2D] += -lr * tbuf's sums and, on the output half, -lr *
+    nbuf's, each row scaled by min(1, cap / its occupancy) (the buffers'
+    last column); in place."""
+    D = nbuf.shape[1] - 1
+    tok_scale = (update_cap / tbuf[:, 2 * D:].clamp(min=1.0)).clamp(max=1.0)
+    neg_scale = (update_cap / nbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
+    # in place: the JAX function donates the table, so nothing else
+    # holds the old values
+    w_cat.add_((-lr) * tbuf[:, :2 * D] * tok_scale)
+    w_cat[:, D:].add_((-lr) * nbuf[:, :D] * neg_scale)
 
 
 def sgns_step(w_cat, tok, eff_b, neg, lr, *, window_ok, dm, nsp, neg_w,
@@ -241,7 +284,6 @@ def sgns_step(w_cat, tok, eff_b, neg, lr, *, window_ok, dm, nsp, neg_w,
     Returns (loss, pairs) as 0-d tensors."""
     V, C = w_cat.shape
     D = C // 2
-    G2, K = neg.shape
     _, y, vn, mask, neg_ok = step_inputs(
         w_cat, tok, eff_b, neg, window_ok, dm, nsp, ops)
     d_yin, d_yout, d_vn, loss_g = ops.grads(
@@ -251,12 +293,7 @@ def sgns_step(w_cat, tok, eff_b, neg, lr, *, window_ok, dm, nsp, neg_w,
     # by its summed update scaled by min(1, cap / R). Occupancy rides as
     # the last column of each scatter: 1 per token, and for a negative
     # row its sharing group's n_pairs * neg_w
-    n_pairs = mask.sum(2)
-    neg_weight = (n_pairs.reshape(G2, -1) * neg_w).sum(1)[:, None].expand(
-        G2, K).reshape(-1)
-    ones = torch.ones((d_yin.shape[0] * d_yin.shape[1], 1),
-                      dtype=torch.float32, device=w_cat.device)
-    d_tok = torch.cat([d_yin.reshape(-1, D), d_yout.reshape(-1, D), ones], 1)
+    d_tok, d_neg = event_rows(d_yin, d_yout, d_vn, mask, neg_w)
     # The JAX step scatters pads as row 0. A pad's gradient row is exactly
     # zero, so pads go in as -1 (dropped) and only their count is added to
     # row 0's occupancy: the same buffer, without a run of thousands of
@@ -265,19 +302,30 @@ def sgns_step(w_cat, tok, eff_b, neg, lr, *, window_ok, dm, nsp, neg_w,
         torch.zeros((V, 2 * D + 1), dtype=torch.float32,
                     device=w_cat.device), tok.reshape(-1), d_tok)
     tbuf[0, 2 * D] += (tok < 0).sum()
-    d_neg = torch.cat([d_vn.reshape(-1, D), neg_weight[:, None]], 1)
     nbuf = ops.scatter_add(
         torch.zeros((V, D + 1), dtype=torch.float32, device=w_cat.device),
         neg.reshape(-1), d_neg)
-    tok_scale = (update_cap / tbuf[:, 2 * D:].clamp(min=1.0)).clamp(max=1.0)
-    neg_scale = (update_cap / nbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
-    # in place: the JAX function donates the table, so nothing else
-    # holds the old values
-    w_cat.add_((-lr) * tbuf[:, :2 * D] * tok_scale)
-    w_cat[:, D:].add_((-lr) * nbuf[:, :D] * neg_scale)
+    capped_update(w_cat, tbuf, nbuf, lr, update_cap)
 
     pairs = mask.sum()
     return loss_g.sum() / pairs.clamp(min=1.0), pairs
+
+
+def window_draws(gen, shape, window):
+    """Dynamic-window draws in {1..window}, window - floor(U * window), on
+    the generator's device."""
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return window - (u * window).to(torch.int32).clamp(0, window - 1)
+
+
+def step_lrs(t0, S, alpha, min_alpha, total_steps):
+    """float32 [S] learning rates max(min_alpha, alpha * (1 - (t0 + s) /
+    total_steps)), computed in float32 as the JAX package does."""
+    steps = np.int32(t0) + np.arange(S, dtype=np.int32)
+    return np.maximum(
+        np.float32(min_alpha),
+        np.float32(alpha) * (np.float32(1.0) - steps.astype(np.float32)
+                             / np.float32(total_steps)))
 
 
 def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
@@ -301,15 +349,11 @@ def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
         raise ValueError(f"draws eff {tuple(eff.shape)} / negs "
                          f"{tuple(negs.shape)} do not match {geo}")
     window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    steps = np.int32(t0) + np.arange(S, dtype=np.int32)
-    lrs = np.maximum(
-        np.float32(min_alpha),
-        np.float32(alpha) * (np.float32(1.0) - steps.astype(np.float32)
-                             / np.float32(total_steps)))
+    lrs = step_lrs(t0, S, alpha, min_alpha, total_steps)
     neg_w = float(np.float32(negative) / np.float32(K))
     losses, pairs = [], []
     for s in range(S):
-        off = int(steps[s] % geo.n_blocks) * geo.Bw
+        off = (t0 + s) % geo.n_blocks * geo.Bw
         tok = walks[off: off + geo.Bw].reshape(geo.G, geo.PL)
         loss, p = sgns_step(
             w_cat, tok, eff[s], negs[s], float(lrs[s]), window_ok=window_ok,
@@ -463,10 +507,7 @@ class SkipGramTrainer:
                 if t < resume.step:
                     t += S
                     continue
-                u = torch.rand((S, geo.G, geo.PL), generator=gen,
-                               device=device)
-                eff = cfg.window - (u * cfg.window).to(torch.int32).clamp(
-                    0, cfg.window - 1)
+                eff = window_draws(gen, (S, geo.G, geo.PL), cfg.window)
                 negs = table[torch.randint(
                     0, table.shape[0], (S, geo.G2, k_shared),
                     generator=gen, device=device)]

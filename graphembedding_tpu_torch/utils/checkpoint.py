@@ -11,6 +11,10 @@ checkpoints are replaced here by one file a checkpoint directory:
   Reads use `torch.load(weights_only=True)`, which unpickles no code;
 - `try_restore` refuses a checkpoint without the keys a trainer expects,
   and never restarts quietly from step 0 over someone else's state;
+- `save_sharded` / `try_restore_sharded` do the same for the ranks of a
+  mesh: each rank writes and reads its own file, `<path>/rank<r>.pt`, and
+  a checkpoint of another world size, shard shape or trainer is refused on
+  every rank together;
 - `cache_artifact` / `load_artifact` cache host-side preprocessing
   products (numpy and pickle, carried as they are), keyed by
   `content_key`.
@@ -43,8 +47,8 @@ def _to_cpu(obj):
     return obj
 
 
-def save_state(path: str, state: Any) -> None:
-    """Write the dict `state` to `<path>/state.pt` (replacing a previous
+def save_state(path: str, state: Any, name: str = STATE_FILE) -> None:
+    """Write the dict `state` to `<path>/<name>` (replacing a previous
     checkpoint there), creating `path` if needed."""
     os.makedirs(path, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=path, prefix=".state-", suffix=".tmp")
@@ -53,29 +57,30 @@ def save_state(path: str, state: Any) -> None:
             torch.save(_to_cpu(state), f)
             f.flush()
             os.fsync(f.fileno())
-        os.replace(tmp, os.path.join(path, STATE_FILE))
+        os.replace(tmp, os.path.join(path, name))
     except BaseException:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
 
 
-def load_state(path: str) -> Any:
-    """Read the checkpoint in `path` onto the CPU."""
-    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+def load_state(path: str, name: str = STATE_FILE) -> Any:
+    """Read the checkpoint `<path>/<name>` onto the CPU."""
+    return torch.load(os.path.join(path, name), map_location="cpu",
                       weights_only=True)
 
 
-def try_restore(path: str, expected_keys) -> Optional[Any]:
+def try_restore(path: str, expected_keys,
+                name: str = STATE_FILE) -> Optional[Any]:
     """The checkpoint in `path`, or None when there is none.
 
     Raises ValueError when a checkpoint exists but lacks `expected_keys`
     (one written by another trainer or mode): a silent restart from step 0
     would retrain everything and then overwrite the old state.
     """
-    if not os.path.exists(os.path.join(path, STATE_FILE)):
+    if not os.path.exists(os.path.join(path, name)):
         return None
-    state = load_state(path)
+    state = load_state(path, name)
     missing = [k for k in expected_keys if k not in state]
     if missing:
         raise ValueError(
@@ -85,11 +90,64 @@ def try_restore(path: str, expected_keys) -> Optional[Any]:
     return state
 
 
-def maybe_save(path: str, every: int, n_calls: int, state_fn) -> bool:
-    """Save `state_fn()` when the cadence hits; shared by the trainers."""
+def save_sharded(path: str, state: Any, mesh) -> None:
+    """This rank's part of a mesh checkpoint: `state` plus the world size,
+    to `<path>/rank<r>.pt`, by `save_state`'s temporary file and rename."""
+    save_state(path, {**state, "world_size": mesh.size()},
+               f"rank{mesh.rank}.pt")
+
+
+def try_restore_sharded(path: str, template, mesh) -> Optional[Any]:
+    """This rank's part of the mesh checkpoint in `path`, or None when there
+    is none (counterpart of the JAX package's `try_restore_sharded`).
+
+    `template` maps each expected key to a tensor of the shape this rank
+    holds (or to None: no shape to check). Raises ValueError, on every rank
+    together, when any rank's file lacks keys (`try_restore`'s refusal; a
+    single-device checkpoint in `path` lacks the world size), was written
+    at another world size or holds a shard of another shape, or when only
+    some ranks have a file.
+    """
+    name = f"rank{mesh.rank}.pt"
+    keys = tuple(template) + ("world_size",)
+    state, err = None, None
+    try:
+        if os.path.exists(os.path.join(path, name)):
+            state = try_restore(path, keys, name)
+            if int(state["world_size"]) != mesh.size():
+                raise ValueError(
+                    f"checkpoint at {path!r} was written by "
+                    f"{int(state['world_size'])} ranks, not {mesh.size()}")
+            for k, t in template.items():
+                if t is not None and tuple(state[k].shape) != tuple(t.shape):
+                    raise ValueError(
+                        f"checkpoint at {path!r}: {k} has shard shape "
+                        f"{tuple(state[k].shape)}, not {tuple(t.shape)}")
+        elif os.path.exists(os.path.join(path, STATE_FILE)):
+            try_restore(path, keys)  # a single-device checkpoint: refused
+    except ValueError as e:
+        err = e
+    from graphembedding_tpu_torch.parallel import comm
+
+    flags = comm.all_reduce(torch.tensor(
+        [state is not None, err is not None], dtype=torch.int32,
+        device=mesh.device), None).tolist()
+    if flags[1]:
+        raise err or ValueError(
+            f"another rank refused its checkpoint in {path!r}")
+    if 0 < flags[0] < mesh.size():
+        raise ValueError(f"checkpoint at {path!r} has files for "
+                         f"{flags[0]} of {mesh.size()} ranks")
+    return state
+
+
+def maybe_save(path: str, every: int, n_calls: int, state_fn,
+               save=None) -> bool:
+    """Save `state_fn()` when the cadence hits, by `save(path, state)`
+    (default `save_state`); shared by the trainers."""
     if not (path and every and n_calls % every == 0):
         return False
-    save_state(path, state_fn())
+    (save or save_state)(path, state_fn())
     return True
 
 

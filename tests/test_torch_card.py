@@ -24,7 +24,9 @@ eps), so an element whose gradient is near zero turns the last-bit
 differences of another summation order into a step of up to lr, and no
 elementwise bound holds. The co-occurrence matrix and LINE's dense
 adjacency equal the CPU's; its q = wdeg^0.75 (sums in another order)
-holds rtol=1e-6.
+holds rtol=1e-6. The row-sharded SGNS chunk at world size 1 over NCCL (a
+spawned rank) equals the single-device chunk bit for bit, with K3 once, K1
+once and K2 twice a step.
 """
 
 import numpy as np
@@ -352,6 +354,54 @@ def test_four_steps_match_plain(cuda):
                                atol=1e-6)
     np.testing.assert_allclose(la.cpu().numpy(), lb.cpu().numpy(),
                                rtol=1e-4)
+
+
+def rowshard_world1_rank(info, S):
+    """In a spawned NCCL rank of world size 1: the DeepWalk-on-Wiki shapes'
+    chunk by `rowsharded_sgns_chunk` and by `sgns_block_chunk_cat` on the
+    same table and draws; (tables equal, losses and pairs equal, launches
+    of the row-sharded chunk)."""
+    from graphembedding_tpu_torch.parallel import make_mesh
+    from graphembedding_tpu_torch.parallel.rowshard import (
+        rowsharded_sgns_chunk,
+    )
+
+    dev = info.device
+    V, D, L, NW, Bw, K = 2405, 128, 10, 16128, 4032, 64
+    gen = torch.Generator(device=dev).manual_seed(12)
+    walks = torch.randint(0, V, (NW, L), generator=gen, device=dev,
+                          dtype=torch.int32)
+    walks[::7, 6:] = -1  # dead-ended walks
+    geo = sg.block_geometry(NW, L, Bw, 4)
+    eff = 5 - (torch.rand((S, geo.G, geo.PL), generator=gen, device=dev)
+               * 5).to(torch.int32).clamp(0, 4)
+    negs = torch.randint(0, V, (S, geo.G2, K), generator=gen, device=dev,
+                         dtype=torch.int32)
+    w0 = (torch.rand((V, 2 * D), generator=gen, device=dev) - 0.5) / D
+    kw = dict(block_walks=Bw, window=5, negative=5, neg_share_packs=4)
+    a, la, pa = sg.sgns_block_chunk_cat(w0.clone(), walks, eff, negs, 0.025,
+                                        1e-4, 3, 192.0, **kw)
+    kernels = (gather_rows, sgns_block_grads, scatter_add_rows)
+    for k in kernels:
+        k.launches = 0
+    b, lb, pb = rowsharded_sgns_chunk(
+        w0.clone(), walks, eff, negs, 0.025, 1e-4, 3, 192.0,
+        mesh=make_mesh((1, 1), device=dev), **kw)
+    torch.cuda.synchronize()
+    return (torch.equal(a, b), torch.equal(la, lb), torch.equal(pa, pb),
+            {k.__name__: k.launches for k in kernels})
+
+
+def test_rowshard_world1_nccl_equals_single_device(cuda):
+    from graphembedding_tpu_torch.parallel.launch import run_ranks
+
+    S = 4
+    [(tables, losses, pairs, launches)] = run_ranks(
+        rowshard_world1_rank, 1, S, backend="nccl", device="cuda:0",
+        timeout_s=300)
+    assert tables and losses and pairs
+    assert launches == {"gather_rows": S, "sgns_block_grads": S,
+                        "scatter_add_rows": 2 * S}
 
 
 def hs_tree_ids(rng, n=70_560, v=2404, T=14):

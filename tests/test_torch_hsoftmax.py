@@ -189,7 +189,9 @@ def test_hs_loss_decreases():
 
 
 def test_hs_trainer_options(tmp_path):
-    with pytest.raises(NotImplementedError):
+    # mesh= is ported (tests/test_torch_parallel*.py) and takes a
+    # parallel.mesh.Mesh only
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ths.HSTrainer(mesh=object())
     walks = torch.zeros((8, 4), dtype=torch.int32)
     # checkpoints and metrics are ported (tests/test_torch_checkpoint.py)

@@ -281,9 +281,12 @@ def test_line_hard_sbm_gate():
 
 def test_line_unsupported_options_raise(tmp_path):
     m = LINE(small_graph().graph, embedding_size=4, device="cpu")
-    for kw in ({"mesh": object()}, {"sync_every": 4}):
-        with pytest.raises(NotImplementedError):
-            m.train(epochs=1, **kw)
+    # mesh= is ported (tests/test_torch_parallel*.py) and takes a
+    # parallel.mesh.Mesh only; sync_every without a mesh is ignored, as in
+    # the JAX package
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        m.train(epochs=1, mesh=object())
+    m.train(epochs=1, sync_every=4)
     # checkpoints are ported (tests/test_torch_checkpoint.py): one
     # subdirectory an order; checkpoint_every alone saves nothing
     m.train(epochs=1, checkpoint_every=2)

@@ -103,9 +103,12 @@ def test_deepwalk_hard_sbm_gate():
 def test_unsupported_options_raise(tmp_path):
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
     m = DeepWalk(ds.graph, walk_length=5, num_walks=2, device="cpu")
-    for kw in ({"mesh": object()}, {"cap_mode": "sparse"},
-               {"hs": 1, "mesh": object()}):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        m.train(embed_size=8, iter=1, cap_mode="sparse")
+    # train(mesh=) is ported (tests/test_torch_parallel_models.py) and takes
+    # a parallel.mesh.Mesh only
+    for kw in ({"mesh": object()}, {"hs": 1, "mesh": object()}):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             m.train(embed_size=8, iter=1, **kw)
     # checkpoints and metrics are ported (tests/test_torch_checkpoint.py)
     from graphembedding_tpu_torch.utils.metrics import MetricsLogger
@@ -191,7 +194,17 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.examples.line_wiki, "
             "graphembedding_tpu_torch.examples.line_blogcatalog, "
             "graphembedding_tpu_torch.examples.sdne_wiki, "
-            "graphembedding_tpu_torch.examples.struc2vec_flight; "
+            "graphembedding_tpu_torch.examples.struc2vec_flight, "
+            "graphembedding_tpu_torch.parallel, "
+            "graphembedding_tpu_torch.parallel.comm, "
+            "graphembedding_tpu_torch.parallel.mesh, "
+            "graphembedding_tpu_torch.parallel.launch, "
+            "graphembedding_tpu_torch.parallel.rowshard, "
+            "graphembedding_tpu_torch.parallel.sgns, "
+            "graphembedding_tpu_torch.parallel.trainer, "
+            "graphembedding_tpu_torch.parallel.hsoftmax, "
+            "graphembedding_tpu_torch.parallel.line, "
+            "graphembedding_tpu_torch.parallel.sdne; "
             "assert 'jax' not in sys.modules; "
             "assert 'graphembedding_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -441,8 +441,10 @@ def test_chunk_rows_rebuild_the_adjacency():
 def test_unported_options_raise(tmp_path):
     g = small(tds).graph
     m = SDNE(g, hidden_size=[4, 2], device="cpu")
+    # mesh= is ported (tests/test_torch_parallel_models.py) and takes a
+    # parallel.mesh.Mesh only
     for fn in (m.train, m.train_sparse):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             fn(epochs=1, mesh=object())
     # checkpoints are ported (tests/test_torch_checkpoint.py)
     for name, fn in (("train", m.train), ("sparse", m.train_sparse)):

@@ -1,19 +1,22 @@
 """The JAX package's micro-F1 by seed, on the CPU.
 
 The reference figures behind the quality gates of `chip_smoke.py`'s SDNE,
-dense-trainer and BlogCatalog LINE phases: each configuration is trained
+dense-trainer, BlogCatalog LINE and mesh phases: each configuration is trained
 by `graphembedding_tpu` with the model seed given, on the Wiki-scale graph
 (`line_blogcatalog`: the BlogCatalog-scale one, as
 `examples/line_blogcatalog.py` trains it), then scored by its Classifier
 on the 0.8 split with split seed 0, as `chip_smoke.py` scores the port.
-Prints one JSON line a (configuration, seed).
+The `mesh_*` configurations train with mesh= over a (2, 1) mesh of two
+virtual CPU devices (the tool asks XLA for them). Prints one JSON line a
+(configuration, seed).
 
     JAX_PLATFORMS=cpu python tools/reference_f1.py [--seeds 0 1 2]
         [--configs sdne_full sdne_minibatch sdne_sparse deepwalk_dense
-                   line_dense line_blogcatalog]
+                   line_dense line_blogcatalog mesh_deepwalk_rowshard
+                   mesh_deepwalk_dp mesh_deepwalk_hs mesh_line mesh_sdne]
 
-The default is every configuration but `line_blogcatalog` (one to a few
-minutes a seed on a CPU).
+The default is every configuration but `line_blogcatalog` and the mesh ones
+(one to a few minutes a seed on a CPU; the mesh ones take longer).
 """
 
 from __future__ import annotations
@@ -35,13 +38,46 @@ CONFIGS = {
     "line_dense": "LINE(128, 'second').train(trainer='dense')",
     "line_blogcatalog": "LINE(128, 'all').train(batch_size=1024, "
                         "epochs=50) on blogcatalog",
+    "mesh_deepwalk_rowshard": "DeepWalk(10, 80).train(embed_size=128, "
+                              "window_size=5, iter=3, mesh=(2, 1))",
+    "mesh_deepwalk_dp": "DeepWalk(10, 80).train(embed_size=128, "
+                        "window_size=5, iter=3, mesh=(2, 1), "
+                        "parallel_mode='dp')",
+    "mesh_deepwalk_hs": "DeepWalk(10, 80).train(embed_size=128, "
+                        "window_size=5, iter=3, hs=1, mesh=(2, 1))",
+    "mesh_line": "LINE(128, 'second').train(batch_size=1024, epochs=50, "
+                 "mesh=(2, 1))",
+    "mesh_sdne": "SDNE([256, 128]).train(batch_size=3000, epochs=40, "
+                 "mesh=(2, 1))",
 }
 DATASET = {"line_blogcatalog": "blogcatalog"}
+DEFAULT = [c for c in CONFIGS if c not in DATASET
+           and not c.startswith("mesh_")]
+
+
+def mesh_of_two():
+    import jax
+
+    from graphembedding_tpu.parallel.mesh import make_mesh
+
+    return make_mesh((2, 1), devices=jax.devices()[:2])
 
 
 def train(name, graph, seed):
     from graphembedding_tpu.models import LINE, SDNE, DeepWalk
 
+    if name.startswith("mesh_deepwalk"):
+        m = DeepWalk(graph, walk_length=10, num_walks=80, seed=seed)
+        kw = {"mesh_deepwalk_dp": dict(parallel_mode="dp"),
+              "mesh_deepwalk_hs": dict(hs=1)}.get(name, {})
+        return m.train(embed_size=128, window_size=5, iter=3,
+                       mesh=mesh_of_two(), **kw)
+    if name == "mesh_line":
+        m = LINE(graph, embedding_size=128, order="second", seed=seed)
+        return m.train(batch_size=1024, epochs=50, mesh=mesh_of_two())
+    if name == "mesh_sdne":
+        m = SDNE(graph, hidden_size=[256, 128], seed=seed)
+        return m.train(batch_size=3000, epochs=40, mesh=mesh_of_two())
     if name.startswith("sdne"):
         m = SDNE(graph, hidden_size=[256, 128], seed=seed)
         if name == "sdne_full":
@@ -62,10 +98,13 @@ def train(name, graph, seed):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    p.add_argument("--configs", nargs="+",
-                   default=[c for c in CONFIGS if c not in DATASET],
+    p.add_argument("--configs", nargs="+", default=DEFAULT,
                    choices=list(CONFIGS))
     args = p.parse_args(argv)
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=2").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
