@@ -153,6 +153,33 @@ plain PyTorch); the run fails if any kernel's count moves in them.
      rank) and resumed in the same ranks: tables torch.equal to phase 25's
      uninterrupted fit, and the resumed run's launches = the one remaining
      chunk's steps x the per-step counts.
+ 27. the distributed walks (`parallel/walks.py`) at world size 1 over NCCL
+     (one spawned rank on the card): the all-gather engine at slack 1
+     torch.equal to `ops.walk.uniform_walks` from a generator in the same
+     state, on Wiki with a self-loop at each of its 74 vertices without
+     out-edges (no walk stops, so no slot is compacted away); every kind
+     on Wiki (uniform, weighted, batched with hop_batch 4, a2a uniform and
+     weighted, node2vec exact and rejection at p = 0.25, q = 4) and on
+     flight-brazil's Struc2Vec layers (multilayer, multilayer a2a), 80
+     walks of 10 a node, each with overflow 0, every
+     hop an edge (of a layer, or a stay), two runs from one seed
+     torch.equal, warm walked edges/s (rounds and crossed rows where the
+     engine counts them) beside the one-card sampler's; DeepWalk(G,
+     mesh=m).train(embed_size=128, window_size=5, iter=3), the
+     constructor's mesh in rowshard mode (micro-F1 >= its gate, launches
+     as in phase 24); at V = 100,000 (phase 18's graph) one walk of 10 a
+     node by the all-gather engine, the a2a engine and `uniform_walks`;
+ 28. the same at world size 2 over gloo (both ranks on the card): every
+     kind with overflow 0 at slack 4; the a2a engine's corpus through the
+     ragged exchange torch.equal to the dense frame's (the JAX package's)
+     at the default bucket cap and at 64 (backpressure rounds); DeepWalk(
+     mesh=) trained in dp and rowshard mode, DeepWalk(mesh=,
+     walk_exchange='a2a'), Node2Vec(mesh=, p=0.25, q=4) (dp) and
+     Struc2Vec(mesh=) on flight-brazil (hs=1), each with walk s, train s,
+     launches on each rank and micro-F1 >= its gate, the ranks agreeing;
+     then `examples/deepwalk_multihost` as two processes on cuda:0 over
+     gloo (rank 0's JSON line: 2 processes, overflow 0, micro-F1 >= 0.9).
+Phases 27-28 run none of K1-K5 in the walks; the trains launch them.
 World size 2 on one card measures correctness and the exchanges' cost, not
 scaling: both ranks share the card, and gloo moves every exchange through
 host memory.
@@ -222,8 +249,14 @@ BC_MIN_MICRO_F1 = 0.95
 # and rounded down to 0.01, as the gates above keep 0.03-0.05 below theirs:
 # rowshard 0.9543-0.9688, dp 0.9397-0.9459, hs=1 0.9647-0.9709, LINE
 # 0.7464-0.7568, SDNE full batch 0.7547-0.7817
+# The models built with mesh= (phases 27-28, mesh_walks_*, the same rule):
+# DeepWalk rowshard 0.9501-0.9605, dp 0.9480-0.9563, a2a (dp) 0.9397-0.9626,
+# Node2Vec (p = 0.25, q = 4, dp) 0.9335-0.9563, Struc2Vec on flight-brazil
+# (hs=1) 0.8519-0.9259
 MESH_MIN_MICRO_F1 = {"rowshard": 0.91, "dp": 0.89, "hs": 0.92, "line": 0.70,
-                     "sdne": 0.71}
+                     "sdne": 0.71, "walks_rowshard": 0.91, "walks_dp": 0.90,
+                     "walks_a2a": 0.89, "walks_node2vec": 0.89,
+                     "walks_struc2vec": 0.81}
 MESH_SGNS_TOL = (1e-4, 1e-6)  # phase 4's tolerance
 MESH_ROW_TOL = (1e-5, 1e-6)  # phases 9 and 13's: LINE and HS steps
 DEVICE = "cuda"
@@ -560,6 +593,7 @@ def main():
     blogcatalog_phase(dev, card)
     simquery_phase(dev, card)
     mesh_phases(card)
+    mesh_walk_phases(card)
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
@@ -735,6 +769,26 @@ def check_hops(walks, graph, what):
     if not np.isin(u * V + v, src * V + dst).all():
         fail(f"{what}: a hop follows no edge of the graph")
     return u.size
+
+
+def check_layer_hops(walks, layers, what):
+    """Fails unless every hop of walks (a Struc2Vec corpus, no -1) follows
+    an edge of a layer of `layers` (`build_layer_csr`'s arrays) or stays at
+    a vertex without an edge in some layer; returns the stays."""
+    V = layers["gamma"].shape[1]
+    rp = layers["row_ptr"].astype(np.int64)
+    deg = np.diff(rp, axis=1)
+    keys = np.concatenate([np.repeat(np.arange(V), deg[k]) * V
+                           + layers["col_idx"][k, :rp[k, -1]]
+                           for k in range(rp.shape[0])])
+    w = walks.cpu().numpy().astype(np.int64)
+    u, v = w[:, :-1].ravel(), w[:, 1:].ravel()
+    edge = np.isin(u * V + v, keys)
+    stay = (u == v) & (deg[:, u] == 0).any(0)
+    if not (edge | stay).all():
+        fail(f"{what}: {int((~(edge | stay)).sum())} hops follow no "
+             f"layer's edge")
+    return int(stay.sum())
 
 
 def busy_text(fn):
@@ -1171,27 +1225,15 @@ def struc2vec_phase(dev, card):
     if len(emb) != V or not torch.isfinite(model.losses).all():
         fail("Struc2Vec: embeddings missing or losses non-finite")
 
-    # every hop an edge of a layer, or a stay where a layer has no edge
-    walks = model.walks.cpu().numpy().astype(np.int64)
-    if walks.shape != (80 * V, 10):
-        fail(f"Struc2Vec corpus shape {walks.shape}")
-    rp = layers["row_ptr"].astype(np.int64)
-    deg = np.diff(rp, axis=1)
-    keys = np.concatenate([np.repeat(np.arange(V), deg[k]) * V
-                           + layers["col_idx"][k, :rp[k, -1]]
-                           for k in range(K)])
-    u, v = walks[:, :-1].ravel(), walks[:, 1:].ravel()
-    edge = np.isin(u * V + v, keys)
-    stay = (u == v) & (deg[:, u] == 0).any(0)
-    if not (edge | stay).all():
-        fail(f"Struc2Vec: {int((~(edge | stay)).sum())} hops follow no "
-             f"layer's edge")
+    if tuple(model.walks.shape) != (80 * V, 10):
+        fail(f"Struc2Vec corpus shape {tuple(model.walks.shape)}")
+    stays = check_layer_hops(model.walks, layers, "Struc2Vec")
     events = device_events(lambda: model.simulate_walks())
     busy = ("not measured" if events is None else
             f"{len(events)} device events, busy "
             f"{sum(us for _, us in events) / 1e3:.4f} ms")
-    print(f"Struc2Vec walks [{walks.shape[0]}, 10]: every hop a layer edge "
-          f"({int(stay.sum())} stays); cold {cold:.4f} s, warm {warm:.4f} "
+    print(f"Struc2Vec walks [{80 * V}, 10]: every hop a layer edge "
+          f"({stays} stays); cold {cold:.4f} s, warm {warm:.4f} "
           f"s; one warm walk: {busy} [{card}]", flush=True)
     print(f"Struc2Vec path: constructor (context graph, layer CSR, walks) "
           f"{t1 - t0:.4f} s, train {t2 - t1:.4f} s ({steps} HS steps, "
@@ -2085,6 +2127,26 @@ def mesh_world2_rank(info, tmp):
     return dict(lines=lines, runs=runs)
 
 
+def report_mesh_runs(runs_by_rank, card):
+    """Rank 0's runs, each with every rank's launches (and walk seconds
+    where the run walked); the ranks' micro-F1 must agree (their tables
+    are the same) and clear the run's gate."""
+    for i, run in enumerate(runs_by_rank[0]):
+        ranks = [rr[i] for rr in runs_by_rank]
+        gate = MESH_MIN_MICRO_F1[run["gate"]]
+        walk = (f"walks {run['walk_s']:.3f} s, " if "walk_s" in run
+                else "")
+        print(f"{run['what']}: {walk}train {run['train_s']:.3f} s, "
+              f"{run['rate']:.4e} a s ({run['steps']} steps), launches "
+              f"on each rank {[r['launches'] for r in ranks]}, micro-F1 "
+              f"{run['f1']:.4f} (gate {gate}) [{card}]", flush=True)
+        if any(r["f1"] != run["f1"] for r in ranks):
+            fail(f"{run['what']}: ranks' micro-F1 differ: "
+                 f"{[r['f1'] for r in ranks]}")
+        if not run["f1"] >= gate:
+            fail(f"{run['what']}: micro-F1 {run['f1']:.4f} < {gate}")
+
+
 def mesh_phases(card):
     """Phases 24-26: the mesh trainers in spawned ranks on the card."""
     import tempfile
@@ -2095,29 +2157,11 @@ def mesh_phases(card):
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-
-    def report(runs_by_rank):
-        """Rank 0's runs, each with every rank's launches; the ranks'
-        micro-F1 must agree (their tables are the same) and clear the
-        run's gate."""
-        for i, run in enumerate(runs_by_rank[0]):
-            ranks = [rr[i] for rr in runs_by_rank]
-            gate = MESH_MIN_MICRO_F1[run["gate"]]
-            print(f"{run['what']}: train {run['train_s']:.3f} s, "
-                  f"{run['rate']:.4e} a s ({run['steps']} steps), launches "
-                  f"on each rank {[r['launches'] for r in ranks]}, micro-F1 "
-                  f"{run['f1']:.4f} (gate {gate}) [{card}]", flush=True)
-            if any(r["f1"] != run["f1"] for r in ranks):
-                fail(f"{run['what']}: ranks' micro-F1 differ: "
-                     f"{[r['f1'] for r in ranks]}")
-            if not run["f1"] >= gate:
-                fail(f"{run['what']}: micro-F1 {run['f1']:.4f} < {gate}")
-
     t0 = time.perf_counter()
     [w1] = run_ranks(mesh_world1_rank, 1, backend="nccl", device="cuda:0",
                      threads=4, timeout_s=300)
     print(w1["chunk"], f"[{card}]", flush=True)
-    report([w1["runs"]])
+    report_mesh_runs([w1["runs"]], card)
     print(f"phase 24: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="ge_mesh_") as tmp:
@@ -2125,8 +2169,359 @@ def mesh_phases(card):
                        device="cuda:0", threads=4, timeout_s=500)
     for line in w2[0]["lines"]:
         print(line, f"[{card}]", flush=True)
-    report([w["runs"] for w in w2])
+    report_mesh_runs([w["runs"] for w in w2], card)
     print(f"phases 25-26: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# phases 27-28: the distributed walk engines (parallel/walks.py)
+WALK_KINDS = (
+    ("uniform", {}), ("weighted", dict(kind="weighted")),
+    ("batched (hop_batch 4)", dict(hop_batch=4)),
+    ("a2a uniform", dict(exchange="a2a")),
+    ("a2a weighted", dict(kind="weighted", exchange="a2a")),
+    ("node2vec exact", dict(kind="node2vec", p=0.25, q=4.0)),
+    ("node2vec rejection", dict(kind="node2vec_rejection", p=0.25, q=4.0)),
+    ("multilayer", dict(kind="multilayer")),
+    ("multilayer a2a", dict(kind="multilayer", exchange="a2a")))
+
+
+def one_card_walks(kw, graph, ly, dev):
+    """fn() -> the one-card sampler's corpus of a walk kind (80 walks of 10
+    a node, seed 0), for edges/s beside the engine's."""
+    import torch
+
+    from graphembedding_tpu_torch.models import struc2vec as s2v
+    from graphembedding_tpu_torch.ops.walk import simulate_walks
+
+    kind = kw.get("kind", "uniform")
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if kind == "multilayer":
+            V = ly["gamma"].shape[1]
+            return s2v.multilayer_walks(
+                ly["row_ptr"], ly["col_idx"], ly["accept"], ly["alias"],
+                ly["gamma"], torch.arange(V, dtype=torch.int32,
+                                          device=dev).repeat(80),
+                gen, 0.3, length=10)
+        if kind == "weighted":
+            return simulate_walks(graph, 80, 10, generator=gen,
+                                  kind="weighted")
+        if kind.startswith("node2vec"):
+            return simulate_walks(
+                graph, 80, 10, generator=gen, kind="node2vec", p=0.25, q=4.0,
+                sampler="exact" if kind == "node2vec" else "rejection")
+        return simulate_walks(graph, 80, 10, generator=gen)
+    return run
+
+
+def walk_kinds(mesh, graph, layers, one_card):
+    """Every engine kind on the Wiki graph (multilayer: flight-brazil's
+    layers), 80 walks of 10 a node, twice from seed 0: overflow 0, every
+    hop an edge (a layer's, or a stay), the two runs torch.equal. Returns
+    a line a kind with warm edges/s (and the one-card sampler's beside it
+    when one_card)."""
+    import torch
+
+    from graphembedding_tpu_torch.models import struc2vec as s2v
+    from graphembedding_tpu_torch.parallel.walks import DistributedWalker
+
+    dev = mesh.device
+    ly = s2v.layers_to(layers, dev)
+    lines = []
+    for name, kw in WALK_KINDS:
+        kw = dict(kw)
+        multilayer = kw.get("kind") == "multilayer"
+        g = None if multilayer else graph
+        if multilayer:
+            kw.update(layers=layers, num_nodes=layers["gamma"].shape[1])
+        walker = DistributedWalker(g, mesh, 10, num_walks=80, **kw)
+        (w1, ov1), cold = timed_walks(lambda: walker.run_tensor(0))
+        (w2, ov2), warm = timed_walks(lambda: walker.run_tensor(0))
+        what = f"{name} walks over the mesh"
+        if ov1 or ov2:
+            fail(f"{what}: overflow {ov1}, {ov2}")
+        if not torch.equal(w1, w2):
+            fail(f"{what}: two runs from one seed differ")
+        if multilayer:
+            if not (w2 >= 0).all():
+                fail(f"{what}: a walk ended early")
+            check_layer_hops(w2, layers, what)
+            edges = w2.shape[0] * 9
+        else:
+            edges = check_hops(w2, graph, what)
+        line = (f"{name}: [{w2.shape[0]}, 10], overflow 0, warm "
+                f"{warm:.4f} s (cold {cold:.4f}), {edges / warm:.4e} walked "
+                f"edges/s")
+        if walker.last_rounds is not None:
+            line += f", rounds {walker.last_rounds}"
+        if walker.last_crossed is not None:
+            line += f", crossed {walker.last_crossed}"
+        if one_card:
+            run = one_card_walks(kw, graph, ly, dev)
+            run()
+            single, s1 = timed_walks(run)
+            n1 = int((single[:, 1:] >= 0).sum())
+            line += f"; one-card sampler {n1 / s1:.4e} edges/s ({s1:.4f} s)"
+        lines.append(line)
+    return lines
+
+
+def flight_layers():
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.models import struc2vec as s2v
+
+    fl = load_dataset("flight-brazil")
+    edges, _ = s2v.build_context_graph(fl.graph, workers=4)
+    return fl, s2v.build_layer_csr(edges, fl.graph.num_nodes)
+
+
+def walk_model(what, gate, build, train, ds, per_step):
+    """A walk model built with mesh= (its walks timed), then mesh_train."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build()
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    if model.walk_overflow:
+        fail(f"{what}: walk overflow {model.walk_overflow}")
+    run = mesh_train(what, gate, train, model, ds, per_step)
+    run.update(walk_s=walk_s, rate=model.trained_pairs / run["train_s"])
+    return run
+
+
+def mesh_walks_world1_rank(info):
+    """Phase 27, in a spawned NCCL rank of world size 1."""
+    import torch
+
+    from graphembedding_tpu_torch import DeepWalk
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.data.datasets import synthetic_wiki
+    from graphembedding_tpu_torch.graph import Graph
+    from graphembedding_tpu_torch.ops.walk import uniform_walks
+    from graphembedding_tpu_torch.parallel import make_mesh
+    from graphembedding_tpu_torch.parallel.mesh import rank_seed
+    from graphembedding_tpu_torch.parallel.walks import DistributedWalker
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = info.device
+    mesh = make_mesh((1, 1), device=dev)
+    ds = load_dataset("wiki")
+    g = ds.graph
+    lines = []
+    # the oracle: at slack 1 the engine draws uniform_walks' uniforms in its
+    # order as long as no walk stops (a stopped walker's slot is compacted
+    # away, and the later walkers move to other slots and draws): Wiki with
+    # a self-loop at each of its vertices without out-edges
+    src, dst, _ = g.edges()
+    dead = np.flatnonzero(g.degree == 0)
+    loops = Graph(np.concatenate([src, dead]), np.concatenate([dst, dead]),
+                  num_nodes=g.num_nodes)
+    walks, ov = DistributedWalker(loops, mesh, 10, num_walks=80,
+                                  slack=1).run_device(3)
+    dl = loops.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(rank_seed(3, 0))
+    want = uniform_walks(dl.row_ptr, dl.col_idx, dl.degree, torch.arange(
+        g.num_nodes, device=dev).repeat(80), length=10, generator=gen)
+    if int(ov) or not torch.equal(walks, want):
+        fail("the slack-1 world-1 corpus differs from uniform_walks'")
+    lines.append(f"oracle: the all-gather engine at slack 1, world 1 "
+                 f"(NCCL), torch.equal to ops.walk.uniform_walks from the "
+                 f"same generator state ({walks.shape[0]} walks of 10 on "
+                 f"Wiki with self-loops at its {dead.size} vertices without "
+                 f"out-edges)")
+    fl, layers = flight_layers()
+    lines += walk_kinds(mesh, g, layers, one_card=True)
+
+    run = walk_model("DeepWalk(mesh=) rowshard, world 1 (NCCL)", "rowshard",
+                     lambda: DeepWalk(g, walk_length=10, num_walks=80,
+                                      device=dev, mesh=mesh),
+                     lambda m: m.train(embed_size=128, window_size=5,
+                                       iter=3), ds, SGNS_STEP)
+
+    # scale: one walk of 10 a node on phase 18's graph
+    big = synthetic_wiki(num_nodes=100_000, avg_degree=10.0).graph
+    bg = big.to(dev)
+    scale = []
+    for name, fn in (
+            ("all-gather engine", DistributedWalker(big, mesh, 10).run_tensor),
+            ("a2a engine", DistributedWalker(big, mesh, 10,
+                                             exchange="a2a").run_tensor),
+            ("uniform_walks", lambda seed: (uniform_walks(
+                bg.row_ptr, bg.col_idx, bg.degree,
+                torch.arange(big.num_nodes, device=dev), length=10,
+                generator=torch.Generator(device=dev).manual_seed(seed)),
+                0))):
+        fn(0)
+        (w, ov), warm = timed_walks(lambda: fn(0))
+        if ov:
+            fail(f"V = 100,000, {name}: overflow {ov}")
+        edges = check_hops(w, big, f"V = 100,000, {name}")
+        scale.append(f"{name} {edges / warm:.4e} edges/s ({warm:.4f} s)")
+    lines.append(f"V = 100,000 (E = {big.num_edges}), one walk of 10 a "
+                 f"node, warm: " + "; ".join(scale))
+    return dict(lines=lines, runs=[run])
+
+
+def a2a_frames(mesh, graph, bcap):
+    """The a2a engine's corpus (one walk of 10 a node: a bucket cap of 64
+    then takes some 100 rounds, not thousands) through the ragged exchange
+    and through the dense frame (the JAX package's), from one seed; fails
+    unless they are torch.equal. Returns a result line."""
+    import torch
+
+    from graphembedding_tpu_torch.parallel import walks as tw
+    from graphembedding_tpu_torch.parallel.mesh import rank_seed
+
+    n, me = mesh.size("data"), mesh.get_local_rank("data")
+    vp = -(-graph.num_nodes // n)
+    parts = tw.partition_csr(graph, n)
+    starts, nw = tw._group_starts(graph.num_nodes, 1, n, vp)
+    args = [torch.as_tensor(parts[k][me]).to(mesh.device)
+            for k in ("row_ptr", "col_idx", "degree")]
+    runs = []
+    for ex in (tw.ragged_exchange, tw.dense_exchange):
+        fn = tw.distributed_uniform_walks_a2a(
+            mesh, length=10, vp=vp, n_walkers=nw, bucket_cap=bcap,
+            exchange=ex)
+        gen = torch.Generator(device=mesh.device).manual_seed(
+            rank_seed(5, me))
+        (walks, ov, rounds, crossed), s = timed_walks(lambda: fn(
+            *args, torch.as_tensor(starts[me]).to(mesh.device), gen))
+        runs.append((walks, int(ov), rounds, int(crossed), s))
+    (a, *ra, sa), (b, *rb, sb) = runs
+    if not torch.equal(a, b) or ra != rb or ra[0]:
+        fail(f"a2a at bucket cap {bcap}: the ragged exchange's corpus "
+             f"differs from the dense frame's ({ra} against {rb})")
+    return (f"bucket cap {bcap or 'default'}: torch.equal, {ra[1]} rounds, "
+            f"{ra[2]} rows crossed; ragged {sa:.4f} s, dense {sb:.4f} s")
+
+
+def mesh_walks_world2_rank(info):
+    """Phase 28, in each of two spawned gloo ranks on one card."""
+    import tempfile
+
+    import torch
+
+    from graphembedding_tpu_torch import DeepWalk, Node2Vec, Struc2Vec
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = info.device
+    mesh = make_mesh((2, 1), device=dev)
+    ds = load_dataset("wiki")
+    g = ds.graph
+    fl, layers = flight_layers()
+    t0 = time.perf_counter()
+    lines = walk_kinds(mesh, g, layers, one_card=False)
+    lines.append("a2a, the ragged exchange against the dense frame: "
+                 + "; ".join(a2a_frames(mesh, g, b) for b in (None, 64)))
+    lines.append(f"walk kinds and frames: {time.perf_counter() - t0:.1f} s")
+
+    sgns = dict(embed_size=128, window_size=5, iter=3)
+    runs = []
+    model = None
+
+    def deepwalk(**kw):
+        nonlocal model
+        model = DeepWalk(g, walk_length=10, num_walks=80, device=dev,
+                         mesh=mesh, **kw)
+        return model
+
+    runs.append(walk_model("DeepWalk(mesh=) dp, world 2 (gloo)",
+                           "walks_dp", deepwalk, lambda m: m.train(
+                               parallel_mode="dp", **sgns), ds, DP_STEP))
+    run = mesh_train("DeepWalk(mesh=) rowshard, world 2 (gloo)",
+                     "walks_rowshard", lambda m: m.train(**sgns), model, ds,
+                     SGNS_STEP)
+    run.update(walk_s=runs[0]["walk_s"],
+               rate=model.trained_pairs / run["train_s"])
+    runs.append(run)
+    runs.append(walk_model(
+        "DeepWalk(mesh=, walk_exchange='a2a') dp, world 2 (gloo)",
+        "walks_a2a", lambda: deepwalk(walk_exchange="a2a"),
+        lambda m: m.train(parallel_mode="dp", **sgns), ds, DP_STEP))
+    runs.append(walk_model(
+        "Node2Vec(mesh=, p=0.25, q=4) dp, world 2 (gloo)", "walks_node2vec",
+        lambda: Node2Vec(g, walk_length=10, num_walks=80, p=0.25, q=4.0,
+                         device=dev, mesh=mesh),
+        lambda m: m.train(parallel_mode="dp", **sgns), ds, DP_STEP))
+    with tempfile.TemporaryDirectory(prefix="ge_s2v_") as tmp:
+        runs.append(walk_model(
+            "Struc2Vec(mesh=) hs=1, world 2 (gloo)", "walks_struc2vec",
+            lambda: Struc2Vec(fl.graph, walk_length=10, num_walks=80,
+                              workers=4, temp_path=tmp + "/", device=dev,
+                              mesh=mesh),
+            lambda m: m.train(embed_size=128, window_size=5, iter=5), fl,
+            HS_STEP))
+    return dict(lines=lines, runs=runs)
+
+
+def multihost_phase(card):
+    """Phase 28's end: the multi-host example as two processes on cuda:0
+    over gloo; rank 0's JSON line."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    cmd = [sys.executable, "-m",
+           "graphembedding_tpu_torch.examples.deepwalk_multihost",
+           "--coordinator", f"localhost:{port}", "--num-processes", "2",
+           "--device", "cuda:0", "--backend", "gloo", "--num-walks", "40",
+           "--json"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(i)], cwd=HERE,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail(f"deepwalk_multihost: exit codes {[p.returncode for p in procs]}"
+             f"\n{outs[0][-2000:]}")
+    res = json.loads([ln for ln in outs[0].splitlines()
+                      if ln.startswith("{")][-1])
+    if (res["processes"], res["walk_overflow"]) != (2, 0) or not \
+            res["micro_f1"] >= 0.9:
+        fail(f"deepwalk_multihost: {res}")
+    print(f"deepwalk_multihost, two processes on cuda:0 over gloo "
+          f"(dp, 40 walks a node): {json.dumps(res)}, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+def mesh_walk_phases(card):
+    """Phases 27-28: the distributed walk engines in spawned ranks."""
+    import torch
+
+    from graphembedding_tpu_torch.parallel.launch import run_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    [w1] = run_ranks(mesh_walks_world1_rank, 1, backend="nccl",
+                     device="cuda:0", threads=4, timeout_s=300)
+    for line in w1["lines"]:
+        print(f"world 1 (NCCL) {line} [{card}]", flush=True)
+    report_mesh_runs([w1["runs"]], card)
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    w2 = run_ranks(mesh_walks_world2_rank, 2, backend="gloo",
+                   device="cuda:0", threads=4, timeout_s=500)
+    for line in w2[0]["lines"]:
+        print(f"world 2 (gloo) {line} [{card}]", flush=True)
+    report_mesh_runs([w["runs"] for w in w2], card)
+    multihost_phase(card)
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
 """Node-classification oracle (micro/macro-F1) on numpy and scipy.
 
 Counterpart of `graphembedding_tpu/eval/classify.py`, which uses
-scikit-learn. The port keeps its semantics without scikit-learn:
+scikit-learn. The port keeps its semantics without needing scikit-learn:
 
-- one-vs-rest L2 logistic regression per class, C = 1, with an
+- one-vs-rest over the embedding vectors (`TopKRanker`): one binary
+  estimator a class, any object with `fit(X, y)` and `predict_proba(X)`
+  (`Classifier(embeddings, LogisticRegression())`, the reference's call),
+  by default `LBFGSLogistic`: L2 logistic regression, C = 1, an
   unpenalised intercept, solved by L-BFGS (max_iter 100) on the objective
   scikit-learn's `LogisticRegression(solver='lbfgs')` minimises;
 - the top-k rule: each test node predicts its k most probable classes,
@@ -12,6 +15,8 @@ scikit-learn. The port keeps its semantics without scikit-learn:
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 from scipy.optimize import minimize
@@ -48,17 +53,73 @@ def _fit_binary(X, y):
     return res.x
 
 
-class Classifier:
-    """One-vs-rest logistic regression with the reference's top-k rule."""
+class LBFGSLogistic:
+    """The default binary estimator: L2 logistic regression by scipy's
+    L-BFGS (`_fit_binary`), in float64."""
 
-    def __init__(self, embeddings):
+    def fit(self, X, y):
+        self.coef_ = _fit_binary(np.asarray(X, dtype=np.float64), y)
+        return self
+
+    def predict_proba(self, X):
+        X = np.asarray(X, dtype=np.float64)
+        p = expit(X @ self.coef_[:-1] + self.coef_[-1])
+        return np.stack([1.0 - p, p], axis=1)
+
+
+class _Constant:
+    """A class every training row has, or none has: its probability is that
+    value, as scikit-learn's one-vs-rest does for such a column."""
+
+    def __init__(self, value):
+        self.value = float(value)
+
+    def predict_proba(self, X):
+        p = np.full(len(X), self.value)
+        return np.stack([1.0 - p, p], axis=1)
+
+
+class TopKRanker:
+    """One-vs-rest: a copy of `estimator` fitted a class; `predict` takes
+    each row's top-k classes, k given a row (the reference's rule)."""
+
+    def __init__(self, estimator):
+        self.estimator = estimator
+        self.estimators_ = None
+
+    def fit(self, X, Y):
+        """X [n, F]; Y [n, classes] binary indicators."""
+        Y = np.asarray(Y)
+        self.classes_ = np.arange(Y.shape[1])
+        self.estimators_ = [
+            _Constant(y[0]) if y.min() == y.max()
+            else copy.deepcopy(self.estimator).fit(X, y)
+            for y in Y.T]
+        return self
+
+    def predict_proba(self, X):
+        return np.stack([e.predict_proba(X)[:, 1] for e in self.estimators_],
+                        axis=1)
+
+    def predict(self, X, top_k_list):
+        probs = self.predict_proba(X)
+        out = np.zeros(probs.shape, dtype=np.int64)
+        for i, k in enumerate(top_k_list):
+            out[i, self.classes_[probs[i].argsort()[-k:]]] = 1
+        return out
+
+
+class Classifier:
+    """One-vs-rest classification with the reference's top-k rule; `clf`
+    is the binary estimator (default `LBFGSLogistic`)."""
+
+    def __init__(self, embeddings, clf=None):
         self.embeddings = embeddings
+        self.clf = TopKRanker(clf if clf is not None else LBFGSLogistic())
         self.classes_ = None
-        self.coef_ = None  # [n_classes, F+1], None rows are constant
-        self.const_ = None
 
     def _features(self, X):
-        return np.asarray([self.embeddings[x] for x in X], dtype=np.float64)
+        return np.asarray([self.embeddings[x] for x in X])
 
     def _binarize(self, Y):
         index = {c: i for i, c in enumerate(self.classes_)}
@@ -70,37 +131,13 @@ class Classifier:
 
     def train(self, X, Y, Y_all):
         self.classes_ = sorted({lab for labels in Y_all for lab in labels})
-        Xf = self._features(X)
-        Yb = self._binarize(Y)
-        self.coef_ = []
-        self.const_ = []
-        for c in range(Yb.shape[1]):
-            y = Yb[:, c]
-            if y.min() == y.max():
-                # one value in training: constant probability, as
-                # scikit-learn's one-vs-rest does for such a column
-                self.coef_.append(None)
-                self.const_.append(float(y[0]))
-            else:
-                self.coef_.append(_fit_binary(Xf, y))
-                self.const_.append(None)
+        self.clf.fit(self._features(X), self._binarize(Y))
 
     def predict_proba(self, X):
-        Xf = self._features(X)
-        cols = []
-        for wb, const in zip(self.coef_, self.const_):
-            if wb is None:
-                cols.append(np.full(Xf.shape[0], const))
-            else:
-                cols.append(expit(Xf @ wb[:-1] + wb[-1]))
-        return np.stack(cols, axis=1)
+        return self.clf.predict_proba(self._features(X))
 
     def predict(self, X, top_k_list):
-        probs = self.predict_proba(X)
-        out = np.zeros(probs.shape, dtype=np.int64)
-        for i, k in enumerate(top_k_list):
-            out[i, probs[i].argsort()[-k:]] = 1
-        return out
+        return self.clf.predict(self._features(X), top_k_list)
 
     def evaluate(self, X, Y):
         Y_pred = self.predict(X, [len(labels) for labels in Y])

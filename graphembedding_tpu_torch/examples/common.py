@@ -1,14 +1,18 @@
 """Shared example plumbing: the command line, evaluation and the t-SNE plot.
 
-Counterpart of the JAX package's `examples/common.py`, with `--device` in
-place of `--mesh` (the examples train on one device; `train(mesh=)` is
-driven from code, see `graphembedding_tpu_torch.parallel`).
+Counterpart of the JAX package's `examples/common.py`, plus `--device`.
+`--mesh DATA[xMODEL]` trains over a mesh of the ranks that `torchrun`
+starts, one process a rank:
+
+    torchrun --nproc-per-node 2 -m graphembedding_tpu_torch.examples.\
+deepwalk_wiki --mesh 2
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 from graphembedding_tpu_torch.data import load_dataset
@@ -34,7 +38,55 @@ def make_parser(name: str, dataset_default: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the CUDA card; "
                         "'cpu' runs on the CPU)")
+    p.add_argument("--mesh", default=None, metavar="DATA[xMODEL]",
+                   help="train over a mesh of the ranks torchrun started, "
+                        "e.g. '2' or '2x2' (data x model axes; their product "
+                        "is the world size)")
     return p
+
+
+# what torchrun sets in each rank's environment
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def mesh_from_args(args):
+    """None, or the (data, model) mesh of --mesh over the ranks torchrun
+    started: joins the group from their environment (NCCL for a CUDA
+    device, each rank on the card of its LOCAL_RANK; gloo for the CPU).
+    Raises without that environment, or when the shape is not the world
+    size."""
+    if not getattr(args, "mesh", None):
+        return None
+    import torch
+    import torch.distributed as dist
+
+    from graphembedding_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+    )
+
+    missing = [k for k in _TORCHRUN_ENV if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"--mesh needs the environment torchrun sets "
+                           f"(missing {', '.join(missing)}); run under "
+                           f"torchrun --nproc-per-node N")
+    parts = str(args.mesh).lower().split("x")
+    shape = (int(parts[0]), int(parts[1]) if len(parts) > 1 else 1)
+    world = int(os.environ["WORLD_SIZE"])
+    if shape[0] * shape[1] != world:
+        raise ValueError(f"--mesh {args.mesh} is {shape[0] * shape[1]} "
+                         f"ranks, torchrun started {world}")
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        args.device = str(device)
+    if not dist.is_initialized():
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        init_distributed(int(os.environ["RANK"]), world,
+                         "nccl" if device.type == "cuda" else "gloo",
+                         "env://")
+    return make_mesh(shape, device=device)
 
 
 def evaluate_embeddings(embeddings, ds, train_frac=0.8, seed=0):
@@ -88,11 +140,13 @@ def report(name, ds, results, t_train, args):
 
 def run(name, dataset_default, build_and_train, parser=None, argv=None):
     """Generic example main: parse argv (default sys.argv) -> train ->
-    evaluate -> report -> plot. Returns (model, results, train seconds);
-    the train time ends in a device synchronize."""
+    evaluate -> report -> plot. `args.mesh` is the Mesh of --mesh (or
+    None) when build_and_train runs. Returns (model, results, train
+    seconds); the train time ends in a device synchronize."""
     import torch
 
     args = (parser or make_parser(name, dataset_default)).parse_args(argv)
+    args.mesh = mesh_from_args(args)  # the Mesh, or None
     ds = load_dataset(args.dataset)
     t0 = time.perf_counter()
     model = build_and_train(ds, args)
@@ -104,4 +158,8 @@ def run(name, dataset_default, build_and_train, parser=None, argv=None):
     report(name, ds, results, t_train, args)
     if args.plot:
         plot_embeddings(emb, ds, args.plot)
+    if args.mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return model, results, t_train

@@ -14,7 +14,7 @@ def build_and_train(ds, args):
     model = DeepWalk(ds.graph, walk_length=10, num_walks=80, seed=args.seed,
                      device=args.device)
     model.train(embed_size=args.embed_size, window_size=5, iter=3,
-                trainer=args.trainer)
+                mesh=args.mesh, trainer=args.trainer)
     return model
 
 

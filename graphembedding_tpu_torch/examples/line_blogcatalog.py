@@ -17,7 +17,7 @@ from graphembedding_tpu_torch.models import LINE
 def build_and_train(ds, args):
     model = LINE(ds.graph, embedding_size=args.embed_size, order=args.order,
                  seed=args.seed, device=args.device)
-    model.train(batch_size=1024, epochs=args.epochs,
+    model.train(batch_size=1024, epochs=args.epochs, mesh=args.mesh,
                 trainer="dense" if args.trainer == "dense" else "sampled")
     return model
 

@@ -15,7 +15,7 @@ def build_and_train(ds, args):
                  seed=args.seed, device=args.device)
     # LINE's trainers are 'sampled' and 'dense' (the CLI's 'block' is the
     # sampled one)
-    model.train(batch_size=1024, epochs=50,
+    model.train(batch_size=1024, epochs=50, mesh=args.mesh,
                 trainer="dense" if args.trainer == "dense" else "sampled")
     return model
 

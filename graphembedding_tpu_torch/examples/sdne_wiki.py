@@ -16,7 +16,7 @@ def build_and_train(ds, args):
                          "objective); drop --trainer dense")
     model = SDNE(ds.graph, hidden_size=[256, 128], seed=args.seed,
                  device=args.device)
-    model.train(batch_size=3000, epochs=40)
+    model.train(batch_size=3000, epochs=40, mesh=args.mesh)
     return model
 
 

@@ -23,7 +23,7 @@ def build_and_train(ds, args):
                       device=args.device)
     # the dense expected-SGNS trainer trains the SGNS objective: hs off
     model.train(embed_size=args.embed_size, window_size=5, iter=5,
-                trainer=args.trainer,
+                mesh=args.mesh, trainer=args.trainer,
                 **({"hs": 0} if args.trainer == "dense" else {}))
     return model
 

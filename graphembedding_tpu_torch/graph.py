@@ -132,6 +132,31 @@ class Graph:
                    directed=graph.is_directed())
 
     @classmethod
+    def from_csr(cls, row_ptr: np.ndarray, col_idx: np.ndarray,
+                 edge_weight: Optional[np.ndarray] = None, *,
+                 vocab=None, directed: bool = True) -> "Graph":
+        """Adopt an already-built CSR as it is, without sorting on the host
+        (for graphs generated in bulk). `col_idx` must be sorted within each
+        row; `directed` is metadata only (pass both directions of each edge
+        for an undirected graph)."""
+        g = cls.__new__(cls)
+        row_ptr = np.asarray(row_ptr, dtype=np.int32)
+        g.num_nodes = int(row_ptr.shape[0] - 1)
+        g.directed = directed
+        g.vocab = vocab if vocab is not None else IdentityVocab(g.num_nodes)
+        g.row_ptr = row_ptr
+        g.col_idx = np.asarray(col_idx, dtype=np.int32)
+        g.num_edges = int(g.col_idx.shape[0])
+        if edge_weight is None:
+            edge_weight = np.ones(g.num_edges, dtype=np.float32)
+        g.edge_weight = np.asarray(edge_weight, dtype=np.float32)
+        counts = np.diff(row_ptr)
+        g.degree = counts.astype(np.int32)
+        g.max_degree = int(counts.max(initial=0))
+        g._views = {}
+        return g
+
+    @classmethod
     def from_edgelist(cls, path: str, *, directed: bool = True,
                       weighted: bool = False) -> "Graph":
         """Load an edgelist file (`src dst [weight]` per line, whitespace-
@@ -163,6 +188,13 @@ class Graph:
         if key not in self._views:
             self._views[key] = build()
         return self._views[key]
+
+    def free_device(self) -> None:
+        """Drop every view cached on a device (each is built again at its
+        next use); the host's views stay. Frees the CSR, alias tables and
+        padded rows between a walk phase and a training that reads none of
+        them."""
+        self._views = {k: v for k, v in self._views.items() if k[1] is None}
 
     def to(self, device) -> DeviceGraph:
         """The CSR as tensors on `device`, built once a device (callers do
@@ -230,6 +262,9 @@ class Graph:
 
     def neighbors(self, v: int) -> np.ndarray:
         return self.col_idx[self.row_ptr[v]: self.row_ptr[v + 1]]
+
+    def out_weights(self, v: int) -> np.ndarray:
+        return self.edge_weight[self.row_ptr[v]: self.row_ptr[v + 1]]
 
     def edges(self):
         """(src, dst, weight) int64/int64/f32 arrays in CSR order."""

@@ -8,7 +8,9 @@ directory, bit-identical to an uninterrupted train) and `metrics=` (a
 `utils.metrics.MetricsLogger`, one line a chunk). Both take `mesh=` (a
 `parallel.mesh.Mesh`: every rank's process calls `train` on its own model,
 and the walks of rank 0 are trained; `parallel_mode='rowshard'` or `'dp'`
-for SGNS, data- and tensor-parallel chunks for hs=1). Models accept a
+for SGNS, data- and tensor-parallel chunks for hs=1); a model built with
+`mesh=` walks over that mesh (`parallel.walks.DistributedWalker`) and
+trains over it unless `train` is given another. Models accept a
 networkx graph or a `graphembedding_tpu_torch.Graph`, and run on the
 `device` they are given: the CUDA card by default, the CPU only when the
 caller asks for it.
@@ -22,9 +24,11 @@ from typing import Dict, Optional
 import torch
 
 from graphembedding_tpu_torch.graph import Graph
+from graphembedding_tpu_torch.parallel.mesh import check_mesh
 from graphembedding_tpu_torch.parallel.trainer import (
     DistributedSkipGramTrainer,
 )
+from graphembedding_tpu_torch.parallel.walks import DistributedWalker
 from graphembedding_tpu_torch.train.dense import DenseSGNSTrainer
 from graphembedding_tpu_torch.train.hsoftmax import HSTrainer
 from graphembedding_tpu_torch.train.skipgram import (
@@ -58,18 +62,29 @@ class WalkEmbeddingModel:
     hierarchical softmax -> embedding table."""
 
     def __init__(self, graph, walk_length: int, num_walks: int,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None):
+        # the constructor's mesh: walks and train over it
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = model_device(device)
         self.graph = as_graph(graph)
         self.walk_length = walk_length
         self.num_walks = num_walks
         self.seed = seed
+        self.walk_overflow = 0  # walkers lost by the mesh walks
         self.walks = None  # int32 [num_walks * V, walk_length] on device
         self.w_in = None
         self.w_out = None
         self.losses = None
         self.trained_pairs = 0.0
         self._embeddings: Optional[Dict] = None
+
+    def _mesh_walks(self, graph, **walker_kw):
+        """The corpus walked over the model's mesh from its seed (every
+        rank gets it whole), on the model's device; sets `walk_overflow`."""
+        walker = DistributedWalker(graph, self.mesh, self.walk_length,
+                                   num_walks=self.num_walks, **walker_kw)
+        walks, self.walk_overflow = walker.run_tensor(self.seed)
+        return walks.to(self.device)
 
     def _fit_skipgram(self, embed_size=128, window_size=5, workers=None,
                       iter=5, negative=5, alpha=0.025, min_alpha=1e-4,
@@ -78,6 +93,8 @@ class WalkEmbeddingModel:
                       checkpoint_dir=None, checkpoint_every=0, metrics=None,
                       **kwargs):
         del workers
+        if mesh is None:
+            mesh = self.mesh
         if trainer == "dense":
             return self._fit_dense(embed_size, window_size, negative, hs,
                                    mesh, checkpoint_dir, metrics, kwargs)

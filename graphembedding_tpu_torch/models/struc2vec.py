@@ -18,9 +18,9 @@ or a failed build raises. The Python pipeline (`_bfs_degree_lists`,
 `_dtw`, `_fastdtw`) computes them for `opt1_reduce_len=False`, which the
 C++ path does not cover, and is the tests' oracle.
 
-`train(mesh=m)` trains over a mesh (`parallel/`), the corpus replicated on
-every rank; the constructor's `mesh=`, which the JAX package uses to shard
-the walks, still raises NotImplementedError.
+`Struc2Vec(G, mesh=m)` walks over a mesh (`parallel.walks`, the layer CSRs
+split over its data axis; every rank gets the whole corpus), and `train`
+then trains over the same mesh (`parallel/`) unless given another.
 """
 
 from __future__ import annotations
@@ -482,14 +482,10 @@ class Struc2Vec(WalkEmbeddingModel):
                  device="cuda"):
         """The context graph is built on the host (or, with reuse=True,
         read from `temp_path`'s cache of it), then the walks are made on
-        `device`. `opt3_num_layers` caps the layers (None: the BFS depth
-        bound); `workers` threads the C++ distance build."""
+        `device`, or over `mesh`. `opt3_num_layers` caps the layers (None:
+        the BFS depth bound); `workers` threads the C++ distance build."""
         del verbose
-        if mesh is not None:
-            raise NotImplementedError(
-                "the constructor's mesh= (distributed walks) is not ported "
-                "to graphembedding_tpu_torch; train(mesh=) is")
-        super().__init__(graph, walk_length, num_walks, seed, device)
+        super().__init__(graph, walk_length, num_walks, seed, device, mesh)
         self.stay_prob = stay_prob
 
         cache_file = None
@@ -518,7 +514,12 @@ class Struc2Vec(WalkEmbeddingModel):
                 with open(cache_file, "wb") as f:
                     pickle.dump(layers, f)
         self.layers = layers_to(layers, self.device)
-        self.walks = self.simulate_walks()
+        if mesh is not None:
+            self.walks = self._mesh_walks(
+                None, kind="multilayer", stay_prob=stay_prob,
+                layers=layers, num_nodes=self.graph.num_nodes)
+        else:
+            self.walks = self.simulate_walks()
 
     def simulate_walks(self, seed=None):
         """num_walks multilayer walks from every node (walk i starts at

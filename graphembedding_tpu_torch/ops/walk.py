@@ -39,7 +39,7 @@ from graphembedding_tpu_torch.ops.alias import alias_draw
 
 _LANE = 128  # the JAX package's neighbor-axis padding, for its thresholds
 _SENTINEL = torch.iinfo(torch.int32).max  # above every node id
-_PQ_BUDGET_BYTES = 4 << 30  # the JAX package's device-memory budget
+PQ_BUDGET_BYTES = 4 << 30  # the JAX package's device-memory budget
 
 
 def _safe(cur):
@@ -354,7 +354,8 @@ def node2vec_walks_rejection(row_ptr, col_idx, degree, accept, alias,
 # --------------------------------------------------------------------------- #
 
 
-def select_pq_kernel(num_nodes, max_degree) -> str:
+def select_pq_kernel(num_nodes, max_degree,
+                     hbm_budget_bytes=PQ_BUDGET_BYTES) -> str:
     """The (p,q) sampler for a graph: 'exact', 'rejection_dense' or
     'rejection' (CSR membership).
 
@@ -363,24 +364,27 @@ def select_pq_kernel(num_nodes, max_degree) -> str:
     to 128 lanes, is at most 384 and the [V, Dpad] ids and weights (8
     bytes a slot) fit the budget; else dense-membership rejection while
     the ids alone (4 bytes a slot) fit; else CSR rejection. The 128-lane
-    padding, the 384 crossover and the 4 GiB budget are measurements and
-    rules of a TPU v5e (the JAX package's `pq_crossover_r05`), not of the
-    H100; the port's own crossover is not measured yet. (The JAX
-    signature's p and q do not enter its rule, and are not taken.)
+    padding, the 384 crossover and the 4 GiB default budget are
+    measurements and rules of a TPU v5e (the JAX package's
+    `pq_crossover_r05`), not of the H100; the port's own crossover is not
+    measured yet. A mesh passes the budget times its data-axis size, as
+    its rows are spread over the ranks. (The JAX signature's p and q do
+    not enter its rule, and are not taken.)
     """
     dpad = ((max(max_degree, 1) + _LANE - 1) // _LANE) * _LANE
-    if dpad <= 384 and num_nodes * dpad * 8 <= _PQ_BUDGET_BYTES:
+    if dpad <= 384 and num_nodes * dpad * 8 <= hbm_budget_bytes:
         return "exact"
-    if num_nodes * dpad * 4 <= _PQ_BUDGET_BYTES:
+    if num_nodes * dpad * 4 <= hbm_budget_bytes:
         return "rejection_dense"
     return "rejection"
 
 
-def pq_sampler(num_nodes, max_degree, use_rejection_sampling=None):
+def pq_sampler(num_nodes, max_degree, use_rejection_sampling=None,
+               hbm_budget_bytes=PQ_BUDGET_BYTES):
     """The (p,q) sampler of a graph under the reference's flag: by
     `select_pq_kernel` for None; 'exact' for False; for True, rejection
     with its membership mode chosen by the same memory budget."""
-    choice = select_pq_kernel(num_nodes, max_degree)
+    choice = select_pq_kernel(num_nodes, max_degree, hbm_budget_bytes)
     if use_rejection_sampling is None:
         return choice
     if not use_rejection_sampling:

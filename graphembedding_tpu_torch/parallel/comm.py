@@ -1,9 +1,11 @@
-"""The collectives of the mesh trainers: all-gather, all-to-all and a sum.
+"""The collectives of the mesh: all-gather, all-to-all (even or ragged) and
+a sum.
 
 Three operations of `torch.distributed`, and no other, carry every
 exchange: `all_gather_into_tensor` (named `all_gather_single` where torch
-has that name), `all_to_all_single` and `all_reduce` with SUM. Gloo (torch
-2.13) takes all three for CPU tensors.
+has that name), `all_to_all_single` (with split sizes for the ragged form)
+and `all_reduce` with SUM. Gloo (torch 2.13) takes all three for CPU
+tensors, uneven and empty splits included.
 
 Host staging is a rule by backend, never a retry: when a group's backend
 is gloo, a CUDA tensor is copied to the host, exchanged there and copied
@@ -55,3 +57,31 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = src.clone() if src is x else src
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(x.device)
+
+
+def ragged_all_to_all(frame: torch.Tensor, counts: torch.Tensor, group,
+                      extra: torch.Tensor = None):
+    """Send the first counts[j] rows of frame[j] to rank j.
+
+    frame [n, cap, ...]: block j holds the rows bound for rank j, the
+    counts[j] occupied ones first; counts [n] ints. The counts go out first
+    in one even all-to-all of [n, 1 + k] int64, with `extra` [n, k] ints
+    (row j to rank j) riding along; the host reads them, the one host sync,
+    and `all_to_all_single` with those split sizes sends the occupied rows
+    only. Returns (rows [sum of received counts, ...] grouped by source
+    rank, received counts (a list), received extra (a list of n lists of
+    k ints; [] a rank without `extra`)).
+    """
+    n = frame.shape[0]
+    head = counts.reshape(n, 1).to(torch.int64)
+    if extra is not None:
+        head = torch.cat([head, extra.reshape(n, -1).to(torch.int64)], 1)
+    sent, got = torch.stack([head, all_to_all(head, group)]).tolist()
+    send_sizes = [row[0] for row in sent]
+    recv_sizes = [row[0] for row in got]
+    src = _staged(torch.cat([frame[j, :c] for j, c in enumerate(send_sizes)]),
+                  group)
+    out = src.new_empty((sum(recv_sizes), *frame.shape[2:]))
+    dist.all_to_all_single(out, src, output_split_sizes=recv_sizes,
+                           input_split_sizes=send_sizes, group=group)
+    return out.to(frame.device), recv_sizes, [row[1:] for row in got]

@@ -125,14 +125,15 @@ def test_unsupported_options_raise(tmp_path):
     # invalid, as in the JAX package
     with pytest.raises(ValueError):
         m.train(embed_size=8, iter=1, trainer="dense", hs=1)
-    for cls, kw in ((DeepWalk, {"mesh": object()}),
-                    (DeepWalk, {"walk_exchange": "a2a"}),
-                    (Node2Vec, {"mesh": object()})):
-        with pytest.raises(NotImplementedError):
-            cls(ds.graph, **kw)
-    # the JAX package's default is accepted
-    DeepWalk(ds.graph, walk_length=5, num_walks=2, walk_exchange=None,
-             device="cpu")
+    # the constructors' mesh= is ported (tests/test_torch_walks_models.py)
+    # and takes a parallel.mesh.Mesh only
+    for cls in (DeepWalk, Node2Vec):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            cls(ds.graph, mesh=object(), device="cpu")
+    # walk_exchange= only matters with a mesh, as in the JAX package
+    for exchange in (None, "a2a"):
+        DeepWalk(ds.graph, walk_length=5, num_walks=2,
+                 walk_exchange=exchange, device="cpu")
     # hs=1 trains hierarchical softmax: w_out is the [V - 1, D] tree
     n2v = Node2Vec(ds.graph, walk_length=5, num_walks=2, device="cpu")
     n2v.train(embed_size=8, iter=1, hs=1)
@@ -152,7 +153,7 @@ def test_models_default_to_the_card(model):
     bad = {"LINE": {"order": "third"}, "SDNE": None}.get(
         model, {"mesh": object()})
     if bad is not None:
-        with pytest.raises((NotImplementedError, ValueError)):
+        with pytest.raises((TypeError, ValueError)):
             cls(ds.graph, **bad)
     if torch.cuda.is_available():
         assert cls(ds.graph).device.type == "cuda"
@@ -195,6 +196,7 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.examples.line_blogcatalog, "
             "graphembedding_tpu_torch.examples.sdne_wiki, "
             "graphembedding_tpu_torch.examples.struc2vec_flight, "
+            "graphembedding_tpu_torch.examples.deepwalk_multihost, "
             "graphembedding_tpu_torch.parallel, "
             "graphembedding_tpu_torch.parallel.comm, "
             "graphembedding_tpu_torch.parallel.mesh, "
@@ -204,7 +206,8 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.parallel.trainer, "
             "graphembedding_tpu_torch.parallel.hsoftmax, "
             "graphembedding_tpu_torch.parallel.line, "
-            "graphembedding_tpu_torch.parallel.sdne; "
+            "graphembedding_tpu_torch.parallel.sdne, "
+            "graphembedding_tpu_torch.parallel.walks; "
             "assert 'jax' not in sys.modules; "
             "assert 'graphembedding_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

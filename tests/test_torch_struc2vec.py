@@ -357,7 +357,9 @@ def test_struc2vec_cache_reuse(tmp_path):
 
 def test_struc2vec_options(tmp_path):
     ds = tds.synthetic_flight(num_nodes=30, seed=2)
-    with pytest.raises(NotImplementedError):
+    # mesh= is ported (tests/test_torch_walks_models.py) and takes a
+    # parallel.mesh.Mesh only
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         Struc2Vec(ds.graph, temp_path=str(tmp_path), mesh=object(),
                   device="cpu")
     if not torch.cuda.is_available():  # the card by default, or raise

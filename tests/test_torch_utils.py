@@ -352,9 +352,9 @@ def test_example_help_runs(name):
         [sys.executable, "-m", f"graphembedding_tpu_torch.examples.{name}",
          "--help"], capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
-    for flag in ("--dataset", "--plot", "--json", "--device", "--trainer"):
+    for flag in ("--dataset", "--plot", "--json", "--device", "--trainer",
+                 "--mesh"):
         assert flag in out.stdout
-    assert "--mesh" not in out.stdout
     assert ("--order" in out.stdout) == (name == "line_blogcatalog")
 
 

@@ -7,13 +7,17 @@ by `graphembedding_tpu` with the model seed given, on the Wiki-scale graph
 `examples/line_blogcatalog.py` trains it), then scored by its Classifier
 on the 0.8 split with split seed 0, as `chip_smoke.py` scores the port.
 The `mesh_*` configurations train with mesh= over a (2, 1) mesh of two
-virtual CPU devices (the tool asks XLA for them). Prints one JSON line a
-(configuration, seed).
+virtual CPU devices (the tool asks XLA for them); the `mesh_walks_*` ones
+also walk over it (the model built with mesh=; Struc2Vec on flight-brazil).
+Prints one JSON line a (configuration, seed).
 
     JAX_PLATFORMS=cpu python tools/reference_f1.py [--seeds 0 1 2]
         [--configs sdne_full sdne_minibatch sdne_sparse deepwalk_dense
                    line_dense line_blogcatalog mesh_deepwalk_rowshard
-                   mesh_deepwalk_dp mesh_deepwalk_hs mesh_line mesh_sdne]
+                   mesh_deepwalk_dp mesh_deepwalk_hs mesh_line mesh_sdne
+                   mesh_walks_deepwalk_rowshard mesh_walks_deepwalk_dp
+                   mesh_walks_deepwalk_a2a mesh_walks_node2vec
+                   mesh_walks_struc2vec]
 
 The default is every configuration but `line_blogcatalog` and the mesh ones
 (one to a few minutes a seed on a CPU; the mesh ones take longer).
@@ -49,8 +53,23 @@ CONFIGS = {
                  "mesh=(2, 1))",
     "mesh_sdne": "SDNE([256, 128]).train(batch_size=3000, epochs=40, "
                  "mesh=(2, 1))",
+    "mesh_walks_deepwalk_rowshard": "DeepWalk(10, 80, mesh=(2, 1)).train("
+                                    "embed_size=128, window_size=5, iter=3)",
+    "mesh_walks_deepwalk_dp": "DeepWalk(10, 80, mesh=(2, 1)).train("
+                              "embed_size=128, window_size=5, iter=3, "
+                              "parallel_mode='dp')",
+    "mesh_walks_deepwalk_a2a": "DeepWalk(10, 80, mesh=(2, 1), "
+                               "walk_exchange='a2a').train(embed_size=128, "
+                               "window_size=5, iter=3, parallel_mode='dp')",
+    "mesh_walks_node2vec": "Node2Vec(10, 80, p=0.25, q=4, mesh=(2, 1))."
+                           "train(embed_size=128, window_size=5, iter=3, "
+                           "parallel_mode='dp')",
+    "mesh_walks_struc2vec": "Struc2Vec(10, 80, workers=4, mesh=(2, 1))."
+                            "train(embed_size=128, window_size=5, iter=5) "
+                            "on flight-brazil",
 }
-DATASET = {"line_blogcatalog": "blogcatalog"}
+DATASET = {"line_blogcatalog": "blogcatalog",
+           "mesh_walks_struc2vec": "flight-brazil"}
 DEFAULT = [c for c in CONFIGS if c not in DATASET
            and not c.startswith("mesh_")]
 
@@ -64,8 +83,33 @@ def mesh_of_two():
 
 
 def train(name, graph, seed):
-    from graphembedding_tpu.models import LINE, SDNE, DeepWalk
+    from graphembedding_tpu.models import (
+        LINE,
+        SDNE,
+        DeepWalk,
+        Node2Vec,
+        Struc2Vec,
+    )
 
+    if name.startswith("mesh_walks_"):
+        mesh = mesh_of_two()
+        dp = {} if name.endswith("rowshard") else {"parallel_mode": "dp"}
+        if name == "mesh_walks_struc2vec":
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as tmp:
+                m = Struc2Vec(graph, walk_length=10, num_walks=80,
+                              workers=4, seed=seed, mesh=mesh,
+                              temp_path=tmp + "/")
+            return m.train(embed_size=128, window_size=5, iter=5)
+        if name == "mesh_walks_node2vec":
+            m = Node2Vec(graph, walk_length=10, num_walks=80, p=0.25, q=4.0,
+                         seed=seed, mesh=mesh)
+        else:
+            m = DeepWalk(graph, walk_length=10, num_walks=80, seed=seed,
+                         mesh=mesh, walk_exchange=(
+                             "a2a" if name.endswith("a2a") else None))
+        return m.train(embed_size=128, window_size=5, iter=3, **dp)
     if name.startswith("mesh_deepwalk"):
         m = DeepWalk(graph, walk_length=10, num_walks=80, seed=seed)
         kw = {"mesh_deepwalk_dp": dict(parallel_mode="dp"),
