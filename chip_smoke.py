@@ -54,10 +54,12 @@ Phases, one or more lines each:
      `ops.rows.scatter_add_table`) against four through the plain
      versions, from the same tables and draws, at the DeepWalk hs=1 Wiki
      shapes (Bw = 504: G = 42 groups of PL = 120, Huffman depth T, the
-     tree table [V - 1, 128]); then the step's tree scatter [G*PL*T, 129]
-     by K4, K2 and a bare `index_add_` in turns (bit-equal to each other's
-     and the CPU plain version's sums), and its tree gather by K3 and
-     `index_select` in turns;
+     tree table [V - 1, 128]); then the step's two scatters, the tokens'
+     [G*PL, 128] into [V, 128] and the tree's [G*PL*T, 128] into
+     [V - 1, 128], each by K4 (its plan by `ops.rows.small_plan`) bit-equal
+     to K2 and to the CPU plain version and run to run, timed in turns
+     with a bare `index_add_` and with K2, beside its bound; and the tree
+     gather by K3 and `index_select` in turns;
  14. DeepWalk hs=1 path: load_dataset('wiki') -> DeepWalk(walk_length=10,
      num_walks=80, device='cuda') -> train(embed_size=128, window_size=5,
      iter=3, hs=1) -> get_embeddings -> Classifier; checks that K3 and K4
@@ -618,7 +620,7 @@ def line_phases(dev, card, records, record):
     from graphembedding_tpu_torch.models import line
     from graphembedding_tpu_torch.ops.rows import (
         dma_gather_rows, gather_rows, scatter_add_rows,
-        scatter_add_rows_plain, scatter_add_small)
+        scatter_add_rows_plain, scatter_add_small, small_plan)
 
     # 6. K4 at the LINE step's shapes, on the step's own draws
     ds = load_dataset("wiki")
@@ -659,7 +661,8 @@ def line_phases(dev, card, records, record):
             bound_ms=rows_bound_ms(ids, V, D, None))
         launched = device_launches(lambda: scatter_add_small(buf, ids, grads))
         print(f"  scatter_add_small {name} [{ids.numel()}, {D}] into "
-              f"[{V}, {D}]: bit-equal to the CPU plain version and to K2; "
+              f"[{V}, {D}] ({small_plan(ids.numel(), V)} plan): bit-equal to "
+              f"the CPU plain version and to K2; "
               f"{ms:.4f} ms vs index_add_ {lib_ms:.4f} ms in turns, plain "
               f"{k4[name]['plain_ms']:.4f} ms, K2 {k4[name]['k2_ms']:.4f} "
               f"ms, bound {k4[name]['bound_ms']:.4f} ms; device launches a "
@@ -941,6 +944,56 @@ def node2vec_phases(dev, card):
               f"edges/s; {busy_text(run)} [{card}]", flush=True)
 
 
+def hs_scatter_phase(call, V, C, ids, grads, dev, card, record):
+    """Phase 13's check and times of one scatter of the HS step (the
+    tokens' or the tree's, [N, C] into [V, C]): K4 bit-equal to the CPU
+    plain version and to K2 and the same from run to run; K4 in turns with
+    a bare index_add_ on the kept ids and with K2; appends its record."""
+    import torch
+
+    from graphembedding_tpu_torch.benchmarks.common import (
+        median_ms, turns_ms)
+    from graphembedding_tpu_torch.ops.rows import (
+        scatter_add_rows, scatter_add_rows_plain, scatter_add_small,
+        small_plan)
+
+    kept = ids[(ids >= 0) & (ids < V)]
+    runs = torch.bincount(kept.long(), minlength=V)
+    plan = small_plan(ids.numel(), V)
+    print(f"  {call} scatter [{ids.numel()}, {C}] into [{V}, {C}]: "
+          f"{kept.numel()} kept ids, {int((runs > 0).sum())} rows, the "
+          f"longest run {int(runs.max())}; K4's {plan} plan", flush=True)
+    buf = torch.zeros((V, C), device=dev)
+    k4 = scatter_add_small(buf.clone(), ids, grads)
+    k2 = scatter_add_rows(buf.clone(), ids, grads)
+    again = scatter_add_small(buf.clone(), ids, grads)
+    want = scatter_add_rows_plain(buf.cpu(), ids.cpu(), grads.cpu())
+    torch.cuda.synchronize()
+    if not (torch.equal(k4.cpu(), want) and torch.equal(k4, k2)
+            and torch.equal(k4, again)):
+        fail(f"HS {call} scatter: K4 not bit-equal to the CPU plain "
+             f"version and to K2, or not run-to-run identical")
+    keep = (ids >= 0) & (ids < V)
+    ids_in, grads_in = ids[keep].long(), grads[keep].contiguous()
+    k4_ms, lib_ms = turns_ms(lambda: scatter_add_small(buf, ids, grads),
+                             lambda: buf.index_add_(0, ids_in, grads_in))
+    k4_again, k2_ms = turns_ms(
+        lambda: scatter_add_small(buf, ids, grads),
+        lambda: scatter_add_rows(buf, ids, grads))
+    plain_ms = median_ms(lambda: scatter_add_rows_plain(buf, ids, grads))
+    bound = rows_bound_ms(ids, V, C, None)
+    print(f"  HS {call} scatter in turns: K4 {k4_ms:.4f} ms vs index_add_ "
+          f"{lib_ms:.4f}; K4 {k4_again:.4f} vs K2 {k2_ms:.4f}; plain "
+          f"{plain_ms:.4f} ms; bound {bound:.4f} ms [{card}]", flush=True)
+    if k4_ms > lib_ms:
+        print(f"  note: index_add_ beats K4 at the HS {call} scatter",
+              flush=True)
+    record(f"scatter_add_small[hs {call}]",
+           "graphembedding_tpu_torch/csrc/scatter_small.cu",
+           "graphembedding_tpu/ops/pallas_scatter.py:315", 0.0, k4_ms,
+           plain_ms, bound, lib_ms)
+
+
 def hs_phases(dev, card, records, record):
     """Phases 13-14: four HS steps against plain ones with the tree scatter
     and gather timed, then the DeepWalk hs=1 path; appends the HS-shape K3
@@ -1020,43 +1073,10 @@ def hs_phases(dev, card, records, record):
                    gather=keep("gather", gather_rows_plain),
                    scatter_add=keep("scatter", scatter_add_rows_plain)))
     _, g_ids = seen["gather"][1]
-    (n_inner, C), s_ids, s_grads = seen["scatter"][1]
-    kept = s_ids[s_ids >= 0]
-    runs = torch.bincount(kept.long(), minlength=n_inner)
-    print(f"  tree scatter [{s_ids.numel()}, {C}] into [{n_inner}, {C}]: "
-          f"{kept.numel()} kept ids, {int((runs > 0).sum())} rows, the "
-          f"root's run {int(runs.max())}", flush=True)
-    buf = torch.zeros((n_inner, C), device=dev)
-    k4 = scatter_add_small(buf.clone(), s_ids, s_grads)
-    k2 = scatter_add_rows(buf.clone(), s_ids, s_grads)
-    again = scatter_add_small(buf.clone(), s_ids, s_grads)
-    want = scatter_add_rows_plain(buf.cpu(), s_ids.cpu(), s_grads.cpu())
-    torch.cuda.synchronize()
-    if not (torch.equal(k4.cpu(), want) and torch.equal(k4, k2)
-            and torch.equal(k4, again)):
-        fail("HS tree scatter: K4 not bit-equal to the CPU plain version "
-             "and to K2, or not run-to-run identical")
-    ids_in, grads_in = kept.long(), s_grads[s_ids >= 0].contiguous()
-    k4_ms, lib_ms = turns_ms(lambda: scatter_add_small(buf, s_ids, s_grads),
-                             lambda: buf.index_add_(0, ids_in, grads_in))
-    k2_ms, lib2_ms = turns_ms(lambda: scatter_add_rows(buf, s_ids, s_grads),
-                              lambda: buf.index_add_(0, ids_in, grads_in))
-    k4_again, k2_again = turns_ms(
-        lambda: scatter_add_small(buf, s_ids, s_grads),
-        lambda: scatter_add_rows(buf, s_ids, s_grads))
-    plain_ms = median_ms(lambda: scatter_add_rows_plain(buf, s_ids,
-                                                        s_grads))
-    s_bound = rows_bound_ms(s_ids, n_inner, C, None)
-    print(f"  HS tree scatter in turns: K4 {k4_ms:.4f} ms vs index_add_ "
-          f"{lib_ms:.4f}; K2 {k2_ms:.4f} vs index_add_ {lib2_ms:.4f}; K4 "
-          f"{k4_again:.4f} vs K2 {k2_again:.4f}; plain {plain_ms:.4f} ms; "
-          f"bound {s_bound:.4f} ms [{card}]", flush=True)
-    if k2_again < k4_again:
-        print("  note: K2 beats K4 at the HS tree scatter", flush=True)
-    record("scatter_add_small[hs tree]",
-           "graphembedding_tpu_torch/csrc/scatter_small.cu",
-           "graphembedding_tpu/ops/pallas_scatter.py:315", 0.0, k4_ms,
-           plain_ms, s_bound, lib_ms)
+    n_inner = seen["scatter"][1][0][0]
+    for call, ((rows, C), s_ids, s_grads) in zip(("token", "tree"),
+                                                 seen["scatter"]):
+        hs_scatter_phase(call, rows, C, s_ids, s_grads, dev, card, record)
 
     w_tree_c = w_tree.contiguous()
     got = gather_rows(w_tree_c, g_ids)
@@ -1100,7 +1120,7 @@ def hs_phases(dev, card, records, record):
         fail(f"DeepWalk hs=1: {steps} steps and launches {launches}, want "
              f"1152 steps and {want}")
     for r in records:
-        if r["name"].endswith("[hs tree]"):
+        if "[hs " in r["name"]:
             r["launches"] = launches[r["name"].split("[")[0]]
     if tuple(model.w_out.shape) != (V - 1, 128):
         fail(f"DeepWalk hs=1: tree table {tuple(model.w_out.shape)}")

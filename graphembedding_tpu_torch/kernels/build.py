@@ -46,15 +46,18 @@ SIGNATURES = {
     "ge_scatter_add_rows": [_I, _P, _I64, _I, _P, _P, _I, _I, _P, _P],
     # N, V -> int32 elements of K2's scratch (returns int64)
     "ge_scatter_add_rows_scratch": [_I, _I],
-    # device, table, ld, V, ids, grads, N, C, stream
-    "ge_scatter_add_small": [_I, _P, _I64, _I, _P, _P, _I, _I, _P],
+    # device, table, ld, V, ids, grads, N, C, scratch, group, stream
+    "ge_scatter_add_small": [_I, _P, _I64, _I, _P, _P, _I, _I, _P, _I, _P],
+    # N, V -> int32 elements of K4's group-plan scratch (returns int64)
+    "ge_scatter_add_small_scratch": [_I, _I],
     # device, table, V, ids, N, W, B, stages, grid, smem, out, stream
     "ge_dma_gather_rows": [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "ge_error_string": [_I],
 }
 
 RESTYPES = {"ge_error_string": ctypes.c_char_p,
-            "ge_scatter_add_rows_scratch": _I64}
+            "ge_scatter_add_rows_scratch": _I64,
+            "ge_scatter_add_small_scratch": _I64}
 
 # what the last build took and printed (ptxas register / spill report)
 build_log = {"seconds": None, "ptxas": ""}

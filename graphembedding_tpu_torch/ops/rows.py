@@ -7,8 +7,10 @@ K3 `gather_rows` replaces the contract of
 contract of `_rmw_kernel` (entry `scatter_add_rows`): `table.at[ids].add
 (grads)` with ids outside [0, V) dropped, as XLA's scatter drops them.
 K4 `scatter_add_small` replaces `_scatter_mm_kernel` (entry
-`scatter_add_matmul`): K2's contract for a small table, one block per tile
-of table rows and column slice (`csrc/scatter_small.cu`). K5
+`scatter_add_matmul`): K2's contract for a small table, by one of two
+plans (`small_plan`): a block per tile of table rows and column slice, or
+the ids grouped by row and the sums split by hits
+(`csrc/scatter_small.cu`). K5
 `dma_gather_rows` replaces `benchmarks/dma_gather.py::pallas_row_gather`:
 `table[ids]` by one bulk copy per row into a ring of B-row stages, each
 stage written out by one bulk store, on a persistent grid
@@ -20,10 +22,13 @@ warp per row. K2 groups the ids by hand inside its one cooperative launch
 (no library sort): one stable counting pass when V + 1 <= 4096, else a
 stable radix sort over only bit_length(V) bits; then one warp per (unique
 row, column slice), or a whole block for a long run, adds the row's
-gradients in their original order (`csrc/rows.cu`). K4 makes the same sums in one
-launch with no sort (`csrc/scatter_small.cu`). That is the order of the
-plain version's sequential loop on the CPU, so K2, K4 and the plain
-version on the CPU agree bit for bit, and the kernels are deterministic.
+gradients in their original order (`csrc/rows.cu`). K4 makes the same
+sums in one launch: with no grouping where a call has few ids a table
+row, else grouping by row in shared-memory counters and summing each long
+run in column slices on several SMs (`csrc/scatter_small.cu`). That is
+the order of the plain version's sequential loop on the CPU, so K2, K4
+and the plain version on the CPU agree bit for bit, and the kernels are
+deterministic.
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
 """
@@ -128,40 +133,78 @@ def scatter_add_rows(table, ids, grads):
 scatter_add_rows.launches = 0
 
 
-def scatter_add_small(table, ids, grads):
+def scatter_add_small(table, ids, grads, plan=None):
     """K4: K2's contract (plain version `scatter_add_rows_plain`) for a
     small table: table[ids] += grads in place, ids outside [0, V) dropped,
     each row summed in the order of ids; returns table.
 
-    Its cost grows with N * V (every block reads all ids), so callers go
-    through `scatter_add_table`, which takes it only up to SMALL_V_ROWS
-    table rows.
+    `plan` (CUDA tensors only; None: `small_plan`): "scan", where every
+    block tests every id for its tile of table rows (its cost grows with
+    N * V), or "group", which groups the ids by row and splits the sums
+    by hits (V <= SMALL_V_ROWS). Callers go through `scatter_add_table`,
+    which takes K4 only up to SMALL_V_ROWS table rows.
     """
     on_cuda = _check_rows(table, ids, "scatter_add_small")
     _check_grads(table, ids, grads, "scatter_add_small")
+    if plan not in (None, "scan", "group"):
+        raise ValueError(f"scatter_add_small: plan {plan!r} is not 'scan' "
+                         f"or 'group'")
     if not on_cuda:
         return scatter_add_rows_plain(table, ids, grads)
-    kb.check(kb.library().ge_scatter_add_small(
-        table.device.index, table.data_ptr(), table.stride(0),
-        table.shape[0], ids.data_ptr(), grads.data_ptr(), ids.shape[0],
-        table.shape[1], kb.stream_ptr(table.device)), "scatter_add_small")
+    n, v = ids.shape[0], table.shape[0]
+    plan = plan or small_plan(n, v)
+    if plan == "group" and v > SMALL_V_ROWS:
+        raise ValueError(f"scatter_add_small: the group plan takes at most "
+                         f"{SMALL_V_ROWS} rows, got {v}")
+    lib = kb.library()
+    scratch = None
+    if plan == "group":  # positions, counts, run starts, long runs
+        scratch = torch.empty(lib.ge_scatter_add_small_scratch(n, v),
+                              dtype=torch.int32, device=table.device)
+    kb.check(lib.ge_scatter_add_small(
+        table.device.index, table.data_ptr(), table.stride(0), v,
+        ids.data_ptr(), grads.data_ptr(), n, table.shape[1],
+        None if scratch is None else scratch.data_ptr(), plan == "group",
+        kb.stream_ptr(table.device)), "scatter_add_small")
     scatter_add_small.launches += 1
     return table
 
 
 scatter_add_small.launches = 0
 
-# Most table rows whose scatters go to K4. K4 reads the whole id list once
-# per tile of 16 rows, so its cost grows with V while K2's does not. On an
-# NVIDIA H100 (700 W) `benchmarks/scatter_bench.py --mode matmul --c 128
-# --rows 6144` (LINE's ctx call) gave K4 4.258 against K2 4.819 ns/row at
-# V = 16,384 and 5.871 against 4.863 at V = 24,576 (PERF.md). At C = 256,
-# 45,696 rows a call K2 is the faster from V = 2,405 on; LINE never
-# scatters that many rows, but the hierarchical-softmax tree scatter does
-# (70,560 rows into 2,404, where K4's tile of the root rows sums them in
-# order and K2 ran 16x faster; PERF.md). The rule stands until a
-# benchmark sets one by rows and V.
+# Most table rows whose scatters go to K4, and K4's plan. Set from
+# `benchmarks/scatter_bench.py --mode plans` (--ids uniform and hs, C =
+# 128; device ms a call) on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md):
+# - with uniform ids K4 by its plan is ahead of K2 or within 0.001 ms at
+#   every N up to V = 10,312 (70,560 ids: 0.0552 against 0.0615); at
+#   V = 16,384 it leads by 0.003-0.007 ms at 1,024-6,144 ids, trails by
+#   0.003 at 16,384 and leads by 0.002-0.003 at 45,696-70,560; at
+#   V = 24,576 (the scan plan only) K2 leads from 6,144 ids on (0.0317
+#   against 0.0382). With Huffman-path ids the group plan leads K2 at
+#   every V from 16,380 ids on (V = 16,384, 70,560 ids: 0.0420 against
+#   0.0846). The crossover lies between 16,384 and 24,576 rows by V alone.
+# - The scan plan leads while a call holds at most 8,192 ids and at most
+#   8 a row on average (LINE's emb and ctx calls, [1,024 | 6,144, 128]
+#   into 2,405 rows: 0.0090 / 0.0145 against the group plan's 0.0210 /
+#   0.0215); the group plan from 16,384 ids on (V = 2,405: 0.0227 against
+#   0.0276) or where rows are hot (V = 131, 6,144 ids: 0.0213 against
+#   0.0650). Neither rule sees skew: 1,014-6,136 Huffman-path ids (runs
+#   of 34-438) take the scan plan at 0.022-0.103 ms where K2 takes
+#   0.018-0.029 and the group plan 0.020-0.035. No path of the port
+#   makes such a call (the hierarchical-softmax token scatter, [5,040,
+#   128] into 2,405 rows, has runs of about 45: the scan plan).
 SMALL_V_ROWS = 16_384
+SCAN_MAX_IDS = 8192
+SCAN_MAX_TILE_HITS = 128  # ids a tile of 16 rows: 8 a row
+
+
+def small_plan(n, v):
+    """K4's plan for n ids into v table rows: 'scan' or 'group'."""
+    if v > SMALL_V_ROWS:
+        return "scan"
+    if n > SCAN_MAX_IDS or 16 * n > SCAN_MAX_TILE_HITS * v:
+        return "group"
+    return "scan"
 
 
 def scatter_add_table(table, ids, grads):

@@ -154,28 +154,34 @@ def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
     d_yin = torch.bmm(gmat, ptv)  # [G, PL, D]
     d_tree = torch.bmm(gmat.transpose(1, 2), yin)  # [G, N, D]
 
-    # per-row accumulation cap, occupancy riding as the last column: a
-    # token counts 1, a tree row its context's window pairs. The JAX step
-    # scatters pads as row 0; a pad's gradient rows are exactly zero and a
-    # tree pad weighs 0, so pads go in as -1 (dropped) and only the token
-    # pads' count is added to row 0's occupancy.
+    # per-row accumulation cap. The gradients go through the scatter rule
+    # as contiguous [N, D] rows (16-byte aligned where D % 4 == 0); the
+    # occupancy is a 1-D sum apart, as the JAX step keeps it: a token
+    # counts 1 (pads as row 0), a tree row its context's window pairs
+    # (pads weigh 0). Both are integer-valued floats below 2^24, so any
+    # order of summation gives the same bits. The gradient scatters drop
+    # pads as -1: a pad's gradient rows are exactly zero.
     n_pairs_ctx = mask.sum(1)  # [G, PL] pairs per context
-    tweight = (n_pairs_ctx[:, :, None] * pts_ok).reshape(-1, 1)
-    ones = torch.ones((G * PL, 1), dtype=torch.float32, device=w_in.device)
+    tweight = (n_pairs_ctx[:, :, None] * pts_ok).reshape(-1)
+    occ_t = torch.zeros(V, dtype=torch.float32, device=w_in.device)
+    occ_t.index_add_(0, tok_safe.reshape(-1).long(),
+                     torch.ones_like(tok_safe.reshape(-1),
+                                     dtype=torch.float32))
+    occ_r = torch.zeros(w_tree.shape[0], dtype=torch.float32,
+                        device=w_in.device)
+    occ_r.index_add_(0, pts_safe.reshape(-1).long(), tweight)
     tbuf = ops.scatter_add(
-        torch.zeros((V, D + 1), dtype=torch.float32, device=w_in.device),
-        tok.reshape(-1), torch.cat([d_yin.reshape(-1, D), ones], 1))
-    tbuf[0, D] += (tok < 0).sum()
+        torch.zeros((V, D), dtype=torch.float32, device=w_in.device),
+        tok.reshape(-1), d_yin.reshape(-1, D))
     rbuf = ops.scatter_add(
-        torch.zeros((w_tree.shape[0], D + 1), dtype=torch.float32,
+        torch.zeros((w_tree.shape[0], D), dtype=torch.float32,
                     device=w_in.device),
-        torch.where(pts_ok, pts, -1).reshape(-1),
-        torch.cat([d_tree.reshape(-1, D), tweight], 1))
-    tok_scale = (update_cap / tbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
-    tree_scale = (update_cap / rbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
+        torch.where(pts_ok, pts, -1).reshape(-1), d_tree.reshape(-1, D))
+    tok_scale = (update_cap / occ_t.clamp(min=1.0)).clamp(max=1.0)
+    tree_scale = (update_cap / occ_r.clamp(min=1.0)).clamp(max=1.0)
     # in place: the JAX function donates the tables
-    w_in.add_(lr * tbuf[:, :D] * tok_scale)
-    w_tree.add_(lr * rbuf[:, :D] * tree_scale)
+    w_in.add_(lr * tbuf * tok_scale[:, None])
+    w_tree.add_(lr * rbuf * tree_scale[:, None])
 
     sgn = 2.0 * label.reshape(G, 1, N) - 1.0
     ll = F.logsigmoid(sgn * logits)

@@ -41,6 +41,9 @@ class Vocab:
     def __getitem__(self, node: Hashable) -> int:
         return self.node2idx[node]
 
+    def names(self, indices: Iterable[int]) -> List[Hashable]:
+        return [self.idx2node[i] for i in indices]
+
 
 class IdentityVocab:
     """Lazy vocabulary where node i IS index i.
@@ -76,6 +79,24 @@ class IdentityVocab:
         if node not in self:
             raise KeyError(node)
         return int(node)
+
+    def add(self, node) -> int:
+        """A fixed-size vocabulary: a known id returns itself, any other
+        node raises KeyError."""
+        if node not in self:
+            raise KeyError(
+                f"IdentityVocab({len(self.idx2node)}) cannot add {node!r}")
+        return int(node)
+
+    def names(self, indices: Iterable[int]) -> List:
+        """The ids themselves; IndexError for one outside [0, V)."""
+        n = len(self.idx2node)
+        out = []
+        for i in indices:
+            if not 0 <= i < n:
+                raise IndexError(i)
+            out.append(int(i))
+        return out
 
 
 def preprocess_nxgraph(graph) -> Tuple[List, Dict]:

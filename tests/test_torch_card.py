@@ -29,6 +29,8 @@ spawned rank) equals the single-device chunk bit for bit, with K3 once, K1
 once and K2 twice a step.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -49,6 +51,7 @@ from graphembedding_tpu_torch.ops.rows import (
     scatter_add_rows_plain,
     scatter_add_small,
     sm_count,
+    SMALL_V_ROWS,
 )
 from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads,
@@ -162,33 +165,84 @@ def test_row_kernels_match_plain(cuda, V, C, N, hot):
     assert torch.equal(got, again)  # deterministic
 
 
+def huffman_path_ids(rng, v=2405, tokens=5040):
+    """The tree rows of the hierarchical-softmax step's scatter: the
+    Huffman paths (root first, -1 padded) of `tokens` tokens drawn from
+    Zipf-like counts over v nodes, a tenth of the tokens pads."""
+    counts = np.floor(1e4 / np.arange(1, v + 1))
+    points, _, _ = hs.build_huffman(counts)
+    tok = rng.choice(v, tokens, p=counts / counts.sum())
+    ids = points[tok]
+    ids[rng.random(tokens) < 0.1] = -1
+    return ids.reshape(-1).astype(np.int32)
+
+
 # LINE's Wiki scatters (emb, then ctx), the benchmark's shapes, ragged ones:
-# C not a multiple of 4, a tile of one row, C above the block's threads
-@pytest.mark.parametrize("V,C,N", [(2405, 128, 1024), (2405, 128, 6144),
-                                   (10312, 256, 45696), (50, 7, 3000),
-                                   (1, 33, 100), (40, 1030, 64)])
-def test_scatter_add_small_matches_plain(cuda, V, C, N):
-    """K4 is bit-equal to the plain version's sequential sum on the CPU
-    and to K2, and the same from run to run; ids -1, V and V + 100 are
-    dropped."""
+# C not a multiple of 4, a tile of one row, C above the block's threads;
+# then the HS tree's Huffman paths, one row taking every id, every id
+# dropped, V = 1 and SMALL_V_ROWS, C of 1 to 256, grads at an address
+# that is not 16-byte aligned, and a column slice of a wider table
+@pytest.mark.parametrize("plan", [None, "scan", "group"])
+@pytest.mark.parametrize("V,C,N,case", [
+    (2405, 128, 1024, "hot"), (2405, 128, 6144, "hot"),
+    (10312, 256, 45696, "hot"), (50, 7, 3000, "hot"), (1, 33, 100, "hot"),
+    (40, 1030, 64, "hot"), (2404, 128, 70560, "huffman"),
+    (300, 128, 5000, "one_row"), (300, 64, 2000, "dropped"),
+    (1, 128, 3000, "hot"), (SMALL_V_ROWS, 128, 45696, "hot"),
+    (2405, 1, 6144, "hot"), (2405, 4, 6144, "hot"), (2405, 129, 6144, "hot"),
+    (2405, 256, 6144, "hot"), (2405, 128, 6144, "unaligned"),
+    (2405, 128, 6144, "slice")])
+def test_scatter_add_small_matches_plain(cuda, V, C, N, case, plan):
+    """K4, by either plan or its rule's, is bit-equal to the plain
+    version's sequential sum on the CPU and to K2, and the same from run
+    to run; ids -1, V and V + 100 are dropped."""
     rng = np.random.default_rng(5)
     t = torch.from_numpy(rng.normal(size=(V, C)).astype(np.float32)).to(cuda)
-    i = rng.integers(0, V, N).astype(np.int32)
-    i[::11], i[1::11], i[2::11] = -1, V, V + 100
-    i[3::4] = i[3]  # a hot row
+    if case == "huffman":
+        i = huffman_path_ids(rng, V + 1, N // 14)
+        N = i.size
+    else:
+        i = rng.integers(0, V, N).astype(np.int32)
+        i[::11], i[1::11], i[2::11] = -1, V, V + 100
+        i[3::4] = i[3]  # a hot row
+        if case == "one_row":
+            i[:] = 7
+        elif case == "dropped":
+            i = np.where(np.arange(N) % 2, -5, V + np.arange(N)).astype(
+                np.int32)
     i = torch.from_numpy(i).to(cuda)
     g = torch.from_numpy(
         rng.normal(size=(N, C)).astype(np.float32) * 1e-2).to(cuda)
+    if case == "unaligned":  # 4 bytes past a 16-byte boundary
+        g = torch.cat([torch.zeros(1, device=cuda), g.reshape(-1)])[1:]
+        g = g.view(N, C)
+        assert g.data_ptr() % 16 == 4 and g.is_contiguous()
+    wide = t
+    if case == "slice":  # the columns 4 .. 4 + C of a [V, C + 12] table
+        wide = torch.from_numpy(rng.normal(size=(V, C + 12)).astype(
+            np.float32)).to(cuda)
+        t = wide[:, 4:4 + C]
     before = scatter_add_small.launches
-    got = scatter_add_small(t.clone(), i, g)
-    again = scatter_add_small(t.clone(), i, g)
+
+    def k4():
+        out = wide.clone()
+        scatter_add_small(out[:, 4:4 + C] if case == "slice" else out, i,
+                          g, plan=plan)
+        return out
+
+    got, again = k4(), k4()
     assert scatter_add_small.launches == before + 2
-    k2 = scatter_add_rows(t.clone(), i, g)
-    want = scatter_add_rows_plain(t.cpu(), i.cpu(), g.cpu())
+    k2 = wide.clone()
+    scatter_add_rows(k2[:, 4:4 + C] if case == "slice" else k2, i, g)
+    want = wide.cpu()
+    scatter_add_rows_plain(want[:, 4:4 + C] if case == "slice" else want,
+                           i.cpu(), g.cpu())
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got, again)
     assert torch.equal(got, k2)
+    if case != "dropped":
+        assert not torch.equal(got, wide)  # it moved
 
 
 @pytest.mark.parametrize("V,W,N,B", [(1 << 20, 256, 1 << 16, 8),
@@ -404,6 +458,55 @@ def test_rowshard_world1_nccl_equals_single_device(cuda):
                         "scatter_add_rows": 2 * S}
 
 
+
+def riding_hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *,
+                   window_ok, dm, update_cap, ops):
+    """`train.hsoftmax.hs_step` as it was with the occupancy riding as a
+    last gradient column ([N, D + 1] scatters, D + 1 = 129 at the slice),
+    kept here to hold the step with the occupancy apart against it bit for
+    bit (here on the card, tests/test_torch_hsoftmax.py on the CPU)."""
+    import torch.nn.functional as F
+
+    G, PL = tok.shape
+    V, D = w_in.shape
+    T = points.shape[1]
+    N = PL * T
+    tok_ok = tok >= 0
+    tok_safe = torch.where(tok_ok, tok, 0)
+    yin = ops.gather(w_in, tok_safe.reshape(-1)).view(G, PL, D)
+    pts = points[tok_safe]
+    label = 1.0 - codes[tok_safe]
+    pts_ok = (pts >= 0) & tok_ok[:, :, None]
+    pts_safe = torch.where(pts_ok, pts, 0)
+    ptv = ops.gather(w_tree, pts_safe.reshape(-1)).view(G, N, D)
+    mask = (window_ok[None] & (dm[None] <= eff_b[:, :, None])
+            & tok_ok[:, :, None] & tok_ok[:, None, :]).to(torch.float32)
+    logits = torch.bmm(yin, ptv.transpose(1, 2))
+    gate_n = (mask[:, :, :, None] * pts_ok[:, None, :, :]).reshape(G, PL, N)
+    gmat = (label.reshape(G, 1, N) - torch.sigmoid(logits)) * gate_n
+    d_yin = torch.bmm(gmat, ptv)
+    d_tree = torch.bmm(gmat.transpose(1, 2), yin)
+    n_pairs_ctx = mask.sum(1)
+    tweight = (n_pairs_ctx[:, :, None] * pts_ok).reshape(-1, 1)
+    ones = torch.ones((G * PL, 1), dtype=torch.float32, device=w_in.device)
+    tbuf = ops.scatter_add(
+        torch.zeros((V, D + 1), dtype=torch.float32, device=w_in.device),
+        tok.reshape(-1), torch.cat([d_yin.reshape(-1, D), ones], 1))
+    tbuf[0, D] += (tok < 0).sum()
+    rbuf = ops.scatter_add(
+        torch.zeros((w_tree.shape[0], D + 1), dtype=torch.float32,
+                    device=w_in.device),
+        torch.where(pts_ok, pts, -1).reshape(-1),
+        torch.cat([d_tree.reshape(-1, D), tweight], 1))
+    tok_scale = (update_cap / tbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
+    tree_scale = (update_cap / rbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
+    w_in.add_(lr * tbuf[:, :D] * tok_scale)
+    w_tree.add_(lr * rbuf[:, :D] * tree_scale)
+    sgn = 2.0 * label.reshape(G, 1, N) - 1.0
+    ll = F.logsigmoid(sgn * logits)
+    pairs = mask.sum()
+    return -(ll * gate_n).sum() / pairs.clamp(min=1.0), pairs
+
 def hs_tree_ids(rng, n=70_560, v=2404, T=14):
     """Ids like the DeepWalk hs=1 step's tree scatter: G * PL contexts of T
     levels, each path starting at the root (row 0: a run of 5,040), about a
@@ -414,24 +517,29 @@ def hs_tree_ids(rng, n=70_560, v=2404, T=14):
     return ids
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K2"])
-def test_hs_tree_scatter_matches_plain(cuda, kernel):
-    """K4 and K2 at the HS tree scatter's shape (70,560 ids, C = 129, the
-    occupancy last, into 2,404 rows): bit-equal to the plain version's
-    sequential sum on the CPU and to each other, the same from run to
-    run."""
+@pytest.mark.parametrize("C", [129, 128])
+@pytest.mark.parametrize("kernel", ["K4", "K2", "K4 scan", "K4 group"])
+def test_hs_tree_scatter_matches_plain(cuda, kernel, C):
+    """K4 (by its rule, or either plan) and K2 at the HS tree scatter's
+    shape (70,560 ids into 2,404 rows; C = 128, or 129 with an occupancy
+    column last): bit-equal to the plain version's sequential sum on the
+    CPU and to each other, the same from run to run."""
     rng = np.random.default_rng(13)
     ids = torch.from_numpy(hs_tree_ids(rng)).to(cuda)
-    grads = rng.normal(size=(ids.numel(), 129)).astype(np.float32) * 1e-2
-    grads[:, -1] = rng.integers(0, 11, ids.numel())
+    grads = rng.normal(size=(ids.numel(), C)).astype(np.float32) * 1e-2
+    if C == 129:
+        grads[:, -1] = rng.integers(0, 11, ids.numel())
     grads = torch.from_numpy(grads).to(cuda)
-    table = torch.zeros((2404, 129), device=cuda)
-    fn = scatter_add_small if kernel == "K4" else scatter_add_rows
-    before = fn.launches
+    table = torch.zeros((2404, C), device=cuda)
+    plan = kernel.split()[1] if " " in kernel else None
+    fn = scatter_add_rows if kernel == "K2" else functools.partial(
+        scatter_add_small, plan=plan)
+    counter = scatter_add_rows if kernel == "K2" else scatter_add_small
+    before = counter.launches
     got = fn(table.clone(), ids, grads)
     again = fn(table.clone(), ids, grads)
-    assert fn.launches == before + 2
-    other = (scatter_add_rows if kernel == "K4" else scatter_add_small)(
+    assert counter.launches == before + 2
+    other = (scatter_add_small if kernel == "K2" else scatter_add_rows)(
         table.clone(), ids, grads)
     want = scatter_add_rows_plain(table.cpu(), ids.cpu(), grads.cpu())
     torch.cuda.synchronize()
@@ -484,6 +592,43 @@ def test_four_hs_steps_match_plain(cuda):
     assert torch.equal(out[0][3], out[1][3])
     assert (out[0][1] - w_tree).abs().max() > 1e-4  # it moved
 
+
+
+def test_hs_step_equals_riding_column_form_on_card(cuda):
+    """Four HS steps at the DeepWalk hs=1 Wiki widths through the kernels
+    (K3, K4) with the occupancy apart equal four steps of the form in
+    which it rode as a last gradient column ([N, 129] scatters), bit for
+    bit: w_in, w_tree, the losses and the pair counts."""
+    V, D, L, NW, W = 2405, 128, 10, 5040, 5
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    walks = torch.randint(0, V, (NW, L), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    walks[::7, 6:] = -1
+    points, codes, _ = hs.build_huffman(sg.corpus_counts(walks, V))
+    points = torch.as_tensor(points, device=cuda)
+    codes = torch.as_tensor(codes, device=cuda)
+    geo = sg.block_geometry(NW, L, 504, 1)
+    ok, dm = sg.window_geometry(L, geo.PL, W, cuda)
+    eff = W - (torch.rand((4, geo.G, geo.PL), generator=gen, device=cuda)
+               * W).to(torch.int32).clamp(0, W - 1)
+    w_in = (torch.rand((V, D), generator=gen, device=cuda) - 0.5) / D
+    w_tree = torch.randn((V - 1, D), generator=gen, device=cuda) * 0.05
+    outs = []
+    for step in (hs.hs_step, riding_hs_step):
+        a, b, res = w_in.clone(), w_tree.clone(), []
+        with hs.f32_matmul():
+            for s in range(4):
+                tok = walks[s * geo.Bw:(s + 1) * geo.Bw].reshape(geo.G,
+                                                                 geo.PL)
+                res.append(step(a, b, tok, eff[s], points, codes,
+                                0.025, window_ok=ok, dm=dm, update_cap=8.0,
+                                ops=hs.KERNELS))
+        outs.append((a, b, torch.stack([r[0] for r in res]),
+                     torch.stack([r[1] for r in res])))
+    torch.cuda.synchronize()
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    assert (outs[0][1] - w_tree).abs().max() > 1e-4
 
 def test_multilayer_walks_on_card(cuda):
     """Struc2Vec's walk on flight-brazil's context graph: bit-identical

@@ -21,9 +21,11 @@ from graphembedding_tpu_torch.eval.classify import Classifier
 from graphembedding_tpu_torch.interop import hs_tables_from_jax
 from graphembedding_tpu_torch.train import hsoftmax as ths
 from graphembedding_tpu_torch.train.skipgram import (
+    block_geometry,
     fit_block_walks,
     window_geometry,
 )
+from test_torch_card import riding_hs_step
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -109,9 +111,9 @@ def test_four_hs_steps_match_jax(update_cap, tree):
 
 def test_hs_step_drops_pads_as_jax_counts_them():
     """A block of one token and pads: no pairs and no update; the pads go
-    to both scatters as -1 (dropped) with zero gradient rows, each token
-    counting 1. (Row 0's occupancy, which the JAX step's row-0 scatter
-    gives the pads, is held against JAX by the four-step test.)"""
+    to both scatters as -1 (dropped) with zero gradient rows. (The
+    occupancy, a 1-D sum apart in which the pads count at row 0 as in the
+    JAX step, is held against JAX by the four-step test.)"""
     V, D = 10, 4
     w_in = torch.randn((V, D))
     w_tree = torch.randn((V - 1, D))
@@ -134,11 +136,86 @@ def test_hs_step_drops_pads_as_jax_counts_them():
     assert torch.equal(w_in, before[0]) and torch.equal(w_tree, before[1])
     (tok_ids, tok_g), (tree_ids, tree_g) = calls
     assert (tok_ids == tok.reshape(-1)).all()
-    assert not tok_g[:, :D].any() and (tok_g[:, D] == 1).all()
+    assert tuple(tok_g.shape) == (32, D) and not tok_g.any()
     assert (tree_ids[tok.reshape(-1).repeat_interleave(
         points.shape[1]) < 0] == -1).all()
     assert not tree_g.any()
 
+
+
+def _steps(step, w_in, w_tree, walks, points, codes, eff, ops, update_cap):
+    """Each block of walks through `step` in turn; (w_in, w_tree, losses,
+    pairs)."""
+    NW, L = walks.shape
+    geo = block_geometry(NW, L, 32, 1)
+    ok, dm = window_geometry(L, geo.PL, 3, "cpu")
+    out = []
+    for s in range(eff.shape[0]):
+        off = s % geo.n_blocks * geo.Bw
+        tok = walks[off: off + geo.Bw].reshape(geo.G, geo.PL)
+        out.append(step(w_in, w_tree, tok, eff[s], points, codes,
+                        0.025 * (1 - s / 10), window_ok=ok, dm=dm,
+                        update_cap=update_cap, ops=ops))
+    return (w_in, w_tree, torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]))
+
+
+@pytest.mark.parametrize("update_cap,seed", [(1.0, 0), (2.0, 1), (8.0, 2),
+                                             (1e9, 3)])
+def test_hs_step_equals_riding_column_form(update_cap, seed):
+    """Six steps with the occupancy apart (1-D sums) equal six steps of
+    the form in which it rode as a last gradient column, bit for bit: w_in,
+    w_tree, the losses and the pair counts (the walks hold pads and holes;
+    update_cap 1 and 2 bind on hot rows, 1e9 never)."""
+    V, D, S = 50, 16, 6
+    walks = torch.from_numpy(_corpus(seed, V=V))
+    NW, L = walks.shape
+    counts = np.bincount(walks[walks >= 0].numpy(), minlength=V)
+    points, codes, _ = ths.build_huffman(counts.astype(np.float64))
+    points, codes = torch.from_numpy(points), torch.from_numpy(codes)
+    geo = block_geometry(NW, L, 32, 1)
+    rng = np.random.default_rng(seed)
+    eff = torch.from_numpy(rng.integers(1, 4, (S, geo.G, geo.PL))
+                           .astype(np.int32))
+    w_in = torch.from_numpy((rng.standard_normal((V, D)) * 0.1)
+                            .astype(np.float32))
+    w_tree = torch.from_numpy((rng.standard_normal((V - 1, D)) * 0.1)
+                              .astype(np.float32))
+    got = _steps(ths.hs_step, w_in.clone(), w_tree.clone(), walks, points,
+                 codes, eff, ths.PLAIN, update_cap)
+    want = _steps(riding_hs_step, w_in.clone(), w_tree.clone(), walks,
+                  points, codes, eff, ths.PLAIN, update_cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(got[0], w_in)  # it moved
+
+
+def test_hs_step_scatters_contiguous_rows():
+    """Both scatters of a step take contiguous float32 [N, D] gradients
+    (16-byte rows where D % 4 == 0): the tokens' [G * PL, D] and the
+    tree's [G * PL * T, D]."""
+    V, D = 50, 16
+    walks = torch.from_numpy(_corpus(4, V=V))
+    NW, L = walks.shape
+    counts = np.bincount(walks[walks >= 0].numpy(), minlength=V)
+    points, codes, T = ths.build_huffman(counts.astype(np.float64))
+    geo = block_geometry(NW, L, 32, 1)
+    seen = []
+
+    def scatter(table, ids, grads):
+        seen.append((tuple(table.shape), ids.shape, grads))
+        return ths.PLAIN.scatter_add(table, ids, grads)
+
+    _steps(ths.hs_step, torch.randn((V, D)), torch.randn((V - 1, D)),
+           walks, torch.from_numpy(points), torch.from_numpy(codes),
+           torch.full((1, geo.G, geo.PL), 3, dtype=torch.int32),
+           ths.PLAIN._replace(scatter_add=scatter), 8.0)
+    (tok_t, tok_n, tok_g), (tree_t, tree_n, tree_g) = seen
+    assert tok_t == (V, D) and tree_t == (V - 1, D)
+    assert tuple(tok_g.shape) == (geo.G * geo.PL, D) == (tok_n[0], D)
+    assert tuple(tree_g.shape) == (geo.G * geo.PL * T, D) == (tree_n[0], D)
+    for g in (tok_g, tree_g):
+        assert g.dtype == torch.float32 and g.is_contiguous()
 
 def test_hs_block_geometry_follows_jax():
     """Block and step counts of the JAX HSTrainer (no block upscaling): the

@@ -57,6 +57,41 @@ def test_utils_export_the_jax_names():
         assert fn(arg, 3) == jfn(arg, 3)
 
 
+
+def _outcome(fn, *args):
+    """fn(*args), or the type of the exception it raises."""
+    try:
+        return fn(*args)
+    except (IndexError, KeyError) as e:
+        return type(e)
+
+
+@pytest.mark.parametrize("call", [
+    ("Vocab.names", lambda v: v.Vocab(["x", "y", "z"]).names([2, 0])),
+    ("IdentityVocab.names", lambda v: v.IdentityVocab(5).names([4, 0, 2])),
+    ("IdentityVocab.names out of range",
+     lambda v: _outcome(v.IdentityVocab(5).names, [1, 5])),
+    ("IdentityVocab.names negative",
+     lambda v: _outcome(v.IdentityVocab(5).names, [-1])),
+    ("IdentityVocab.add known", lambda v: v.IdentityVocab(5).add(3)),
+    ("IdentityVocab.add numpy id",
+     lambda v: v.IdentityVocab(5).add(np.int64(4))),
+    ("IdentityVocab.add unknown",
+     lambda v: _outcome(v.IdentityVocab(5).add, 5)),
+    ("IdentityVocab.add a name",
+     lambda v: _outcome(v.IdentityVocab(5).add, "a")),
+])
+def test_vocab_names_and_add_equal_jax(call):
+    """Vocab.names, IdentityVocab.names (IndexError out of range) and
+    IdentityVocab.add (KeyError for an unknown node) give the JAX
+    package's results."""
+    from graphembedding_tpu.utils import vocab as jvocab
+    from graphembedding_tpu_torch.utils import vocab as tvocab
+
+    _, fn = call
+    got, want = fn(tvocab), fn(jvocab)
+    assert got == want and type(got) is type(want)
+
 def test_word2vec_bytes_equal_jax_and_files_cross_read(tmp_path):
     emb = embeddings(V=40, D=8)
     ours, theirs = str(tmp_path / "t.txt"), str(tmp_path / "j.txt")
