@@ -182,6 +182,19 @@ plain PyTorch); the run fails if any kernel's count moves in them.
      then `examples/deepwalk_multihost` as two processes on cuda:0 over
      gloo (rank 0's JSON line: 2 processes, overflow 0, micro-F1 >= 0.9).
 Phases 27-28 run none of K1-K5 in the walks; the trains launch them.
+ 29. chunk graphs against the step loop: the single-device trainers run
+     each chunk of steps as one replayed CUDA graph (train/chunk_graph.py;
+     phases 4-23 go through them); here DeepWalk and DeepWalk hs=1 on
+     Wiki, Struc2Vec on flight-brazil and LINE order 'second' on Wiki each
+     train through the graphs (the cache emptied first, so the cold train
+     captures) and through the loop of steps launched one by one, in this
+     run: tables torch.equal, micro-F1 equal and at its gate, K1-K4
+     launches equal and those of phases 5, 14, 15 and 10; for each way the
+     capture s, cold and warm train s, device time and busy share of one
+     warm train (torch.profiler), peak allocated and reserved memory with
+     the graph pools held; then LINE 'all' on BlogCatalog through the loop
+     against phase 22's train through the graphs (tables, micro-F1,
+     launches).
 World size 2 on one card measures correctness and the exchanges' cost, not
 scaling: both ranks share the card, and gloo moves every exchange through
 host memory.
@@ -201,6 +214,7 @@ function (`index_add_` on the in-range ids for K2 and K4, `index_select`
 for K3 and K5; none for K1), which the port never calls.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -592,10 +606,11 @@ def main():
     sdne_phases(dev, card)
     dense_phase(dev, card)
     restart_phases(dev, card)
-    blogcatalog_phase(dev, card)
+    blogcatalog = blogcatalog_phase(dev, card)
     simquery_phase(dev, card)
     mesh_phases(card)
     mesh_walk_phases(card)
+    chunk_graph_phase(dev, card, blogcatalog)
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
@@ -1789,6 +1804,7 @@ def blogcatalog_phase(dev, card):
     if not res["micro"] >= BC_MIN_MICRO_F1:
         fail(f"LINE BlogCatalog micro-F1 {res['micro']:.4f} < "
              f"{BC_MIN_MICRO_F1}")
+    blogcatalog = (model, res, train_s, launches)
 
     t0 = time.perf_counter()
     out = subprocess.run(
@@ -1804,6 +1820,130 @@ def blogcatalog_phase(dev, card):
           f"interpreter's start) [{card}]", flush=True)
     if line["device"] != "cuda" or not line["micro"] >= MIN_MICRO_F1:
         fail(f"deepwalk_wiki example: {line}")
+    return blogcatalog
+
+
+@contextlib.contextmanager
+def step_loop():
+    """The single-device trainers' chunks launched step by step on the card
+    (the plain version of their CUDA graphs): no device type captures."""
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    cuda = chunk_graph.CAPTURES.pop("cuda")
+    try:
+        yield
+    finally:
+        chunk_graph.CAPTURES["cuda"] = cuda
+
+
+def chunk_graph_phase(dev, card, blogcatalog):
+    """Phase 29: each single-device trainer's path as a CUDA graph a chunk
+    and as the step loop, in turns in this run: tables torch.equal,
+    micro-F1 equal, launches equal (and those of phases 5, 10, 14, 15);
+    capture s, cold and warm train s, device time and busy share of a warm
+    train, peak memory with the graph pools held. LINE 'all' on
+    BlogCatalog: phase 22's train (graphs) against the loop."""
+    import tempfile
+
+    import torch
+
+    from graphembedding_tpu_torch import LINE, DeepWalk, Struc2Vec
+    from graphembedding_tpu_torch.benchmarks.train_profile import (
+        breakdown, device_events as profile_events)
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.examples import line_blogcatalog
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    t_phase = time.perf_counter()
+    wiki, flight = load_dataset("wiki"), load_dataset("flight-brazil")
+    dw = DeepWalk(wiki.graph, walk_length=10, num_walks=80, device=dev)
+    walk_tables = lambda m: (m.w_in, m.w_out)  # noqa: E731
+    sgns_n = {"sgns_block_grads": 192, "scatter_add_rows": 384,
+              "gather_rows": 384, "scatter_add_small": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        s2v = Struc2Vec(flight.graph, walk_length=10, num_walks=80,
+                        workers=4, temp_path=tmp, device=dev)
+    paths = [
+        ("DeepWalk on Wiki", wiki, lambda: dw, lambda m: m.train(
+            embed_size=128, window_size=5, iter=3), walk_tables,
+         MIN_MICRO_F1, sgns_n),
+        ("DeepWalk hs=1 on Wiki", wiki, lambda: dw, lambda m: m.train(
+            embed_size=128, window_size=5, iter=3, hs=1), walk_tables,
+         HS_MIN_MICRO_F1, {"sgns_block_grads": 0, "scatter_add_rows": 0,
+                           "gather_rows": 2304, "scatter_add_small": 2304}),
+        ("Struc2Vec on flight-brazil", flight, lambda: s2v,
+         lambda m: m.train(embed_size=128, window_size=5, iter=5),
+         walk_tables, S2V_MIN_MICRO_F1,
+         {"sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 640,
+          "scatter_add_small": 640}),
+        ("LINE on Wiki", wiki, lambda: LINE(wiki.graph, embedding_size=128,
+                                            order="second", device=dev),
+         lambda m: m.train(batch_size=1024, epochs=50),
+         lambda m: (m.second_emb, m.context_emb), LINE_MIN_MICRO_F1,
+         {"sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 2048,
+          "scatter_add_small": 2048}),
+    ]
+    for name, ds, build, train, tables_of, gate, want_n in paths:
+        ways = {}
+        for way in ("loop", "graph"):
+            chunk_graph.release()
+            with step_loop() if way == "loop" else contextlib.nullcontext():
+                model = build()
+                (_, cold), launches = counted(
+                    lambda: timed_walks(lambda: train(model)))
+                tables = [t.clone() for t in tables_of(model)]
+                res = Classifier(model.get_embeddings()).split_train_evaluate(
+                    ds.X, ds.Y, 0.8, seed=0)
+                graphs = chunk_graph.held(dev)
+                torch.cuda.reset_peak_memory_stats()
+                warm = min(timed_walks(lambda: train(model))[1]
+                           for _ in range(2))
+                peak = torch.cuda.max_memory_allocated()
+                reserved = torch.cuda.memory_reserved()
+                prof = breakdown(profile_events(lambda: train(model)), 3)
+            ways[way] = (tables, res["micro"], launches)
+            capture = (f"capture {sum(g.seconds for g in graphs):.4f} s "
+                       f"({len(graphs)} graphs)" if graphs else "no capture")
+            print(f"{name}, {way}: {capture}; train cold {cold:.4f} s, warm "
+                  f"{warm:.4f} s; one warm train under torch.profiler: "
+                  f"device {prof['device_ms']:.2f} ms, busy "
+                  f"{prof['busy_ms']:.2f} ms in {prof['device_events']} "
+                  f"device events, busy share "
+                  f"{prof['busy_ms'] / 1e3 / warm:.4f}; peak allocated "
+                  f"{peak / 2**20:.1f} MiB, reserved {reserved / 2**20:.1f} "
+                  f"MiB with the graph pools held; micro-F1 "
+                  f"{res['micro']:.4f}; launches {launches} [{card}]",
+                  flush=True)
+        (t_loop, f_loop, n_loop), (t_graph, f_graph, n_graph) = (
+            ways["loop"], ways["graph"])
+        if not all(torch.equal(a, b) for a, b in zip(t_loop, t_graph)):
+            fail(f"{name}: the graphs' tables differ from the loop's")
+        if f_loop != f_graph or not f_graph >= gate:
+            fail(f"{name}: micro-F1 {f_graph} (graphs) against {f_loop} "
+                 f"(loop), gate {gate}")
+        if n_loop != n_graph or n_graph != want_n:
+            fail(f"{name}: launches {n_graph} (graphs), {n_loop} (loop), "
+                 f"want {want_n}")
+        print(f"{name}: graphs against loop: tables torch.equal, micro-F1 "
+              f"{f_graph:.4f} both, launches equal", flush=True)
+
+    model, res, train_s, launches = blogcatalog
+    chunk_graph.release()
+    with step_loop():
+        (m_loop, r_loop, s_loop), n_loop = counted(
+            lambda: line_blogcatalog.main([]))
+    if not (torch.equal(m_loop.embedding_table, model.embedding_table)
+            and torch.equal(m_loop.context_emb, model.context_emb)
+            and r_loop["micro"] == res["micro"] and n_loop == launches):
+        fail(f"LINE on BlogCatalog: the loop's tables, micro-F1 "
+             f"{r_loop['micro']} or launches {n_loop} differ from the "
+             f"graphs' ({res['micro']}, {launches})")
+    print(f"LINE order 'all' on BlogCatalog: graphs (phase 22) train "
+          f"{train_s:.4f} s, loop {s_loop:.4f} s; tables torch.equal, "
+          f"micro-F1 {res['micro']:.4f} both, launches {launches} both "
+          f"[{card}]", flush=True)
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def simquery_phase(dev, card):

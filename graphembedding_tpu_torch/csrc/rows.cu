@@ -756,6 +756,22 @@ cudaError_t launch_scatter(int device, float* table, int64_t ld, int V,
 
 extern "C" {
 
+// Once a process and device, before a launch is captured in a CUDA graph:
+// the gather's kernels loaded and K2's resident blocks an SM read, so that
+// a launch after that makes no host API call that a capture could refuse
+int ge_prepare_rows(int device) {
+  cudaError_t e = cudaSetDevice(device);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, gather_rows_kernel<true>);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, gather_rows_kernel<false>);
+  int blocks = 0;
+  if (e == cudaSuccess) e = scatter_grid<true>(device, 1, 1, 1, &blocks);
+  if (e == cudaSuccess) e = scatter_grid<false>(device, 1, 1, 1, &blocks);
+  return (int)e;
+}
+
 const char* ge_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

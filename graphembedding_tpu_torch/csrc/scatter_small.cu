@@ -922,11 +922,9 @@ scatter_add_grouped_kernel(float* __restrict__ table, int64_t ld, int V,
 // Blocks of the group plan's grid: all that can be resident (a
 // cooperative launch needs all), one an SM.
 template <bool kVec>
-cudaError_t launch_grouped(int device, float* table, int64_t ld, int V,
-                           const int* ids, const float* grads, int N, int C,
-                           int* scratch, cudaStream_t stream) {
-  static int cached[2][64] = {};  // blocks an SM, by device
-  int& per_sm = cached[kVec][device & 63];
+cudaError_t grouped_blocks_per_sm(int device, int* out) {
+  static int cached[64] = {};  // by device
+  int& per_sm = cached[device & 63];
   if (per_sm == 0) {
     cudaError_t e = cudaFuncSetAttribute(
         scatter_add_grouped_kernel<kVec>,
@@ -937,9 +935,19 @@ cudaError_t launch_grouped(int device, float* table, int64_t ld, int V,
     if (e != cudaSuccess) return e;
     if (per_sm == 0) return cudaErrorInvalidConfiguration;
   }
+  *out = per_sm;
+  return cudaSuccess;
+}
+
+template <bool kVec>
+cudaError_t launch_grouped(int device, float* table, int64_t ld, int V,
+                           const int* ids, const float* grads, int N, int C,
+                           int* scratch, cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t e = grouped_blocks_per_sm<kVec>(device, &per_sm);
+  if (e != cudaSuccess) return e;
   int sms = 0;
-  cudaError_t e =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
   void* args[] = {&table, &ld, &V, &ids, &grads, &N, &C, &scratch};
   return cudaLaunchCooperativeKernel(
@@ -947,9 +955,39 @@ cudaError_t launch_grouped(int device, float* table, int64_t ld, int V,
       dim3(per_sm * sms), dim3(kThreads), args, kGroupSmem, stream);
 }
 
+// The scan plan's dynamic shared memory for column slices of CW floats,
+// and the most it was allowed so far, by device
+size_t scan_smem(int CW) {
+  return (size_t)(kRing * kChunk + kHitCap) * 4 +
+         (size_t)(2 * kStage + kTileRows) * CW * 4;
+}
+size_t scan_smem_set[64];
+
+cudaError_t scan_opt_in(int device, size_t smem) {
+  if (smem <= scan_smem_set[device & 63]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      scatter_add_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess) scan_smem_set[device & 63] = smem;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Once a process and device, before a launch is captured in a CUDA graph:
+// both plans' shared memory opted into (the scan plan's at its widest
+// slice) and the group plan's resident blocks an SM read, so that a
+// launch after that makes no host API call that a capture could refuse
+int ge_prepare_small(int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = scan_opt_in(device, scan_smem(kMaxSlice));
+  int per_sm = 0;
+  if (e == cudaSuccess) e = grouped_blocks_per_sm<true>(device, &per_sm);
+  if (e == cudaSuccess) e = grouped_blocks_per_sm<false>(device, &per_sm);
+  return (int)e;
+}
 
 // int32 elements of the group plan's scratch for N ids into V rows
 int64_t ge_scatter_add_small_scratch(int N, int V) {
@@ -996,16 +1034,9 @@ int ge_scatter_add_small(int device, void* table, int64_t ld, int V,
   while (col_threads < CW) col_threads *= 2;
   const bool bulk_ids = (uintptr_t)ids % 16 == 0;
   const bool bulk_rows = (uintptr_t)grads % 16 == 0 && C % 4 == 0;
-  const size_t smem = (size_t)(kRing * kChunk + kHitCap) * 4 +
-                      (size_t)(2 * kStage + kTileRows) * CW * 4;
-  static size_t smem_set[64] = {};  // the opt-in made so far, by device
-  if (smem > smem_set[device & 63]) {
-    e = cudaFuncSetAttribute(scatter_add_small_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set[device & 63] = smem;
-  }
+  const size_t smem = scan_smem(CW);
+  e = scan_opt_in(device, smem);
+  if (e != cudaSuccess) return (int)e;
   scatter_add_small_kernel<<<dim3(tiles, slices), kThreads, smem,
                              (cudaStream_t)stream>>>(
       (float*)table, ld, V, (const int*)ids, (const float*)grads, N, C, CW,

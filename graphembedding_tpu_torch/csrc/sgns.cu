@@ -593,7 +593,34 @@ sgns_block_grads_kernel(const float* __restrict__ yin, int64_t ld_yin,
   cluster.sync();
 }
 
+// The dynamic shared memory each instantiation may take, raised once a
+// device (to the most a Hopper block may opt into by ge_prepare_sgns, or
+// by the first call that needs more): a launch after that makes no host
+// API call but the launch, so it can be captured in a CUDA graph.
+constexpr int kSmemOptIn = 232448;
+int smem_set[2][64];
+
+cudaError_t opt_in(bool fixed, int device, int smem) {
+  int& set = smem_set[fixed][device & 63];
+  if (smem <= set) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fixed ? sgns_block_grads_kernel<132, 132>
+            : sgns_block_grads_kernel<0, 0>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) set = smem;
+  return e;
+}
+
 }  // namespace
+
+// Once a process and device, before a launch is captured: both
+// instantiations opted into the most dynamic shared memory
+extern "C" int ge_prepare_sgns(int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = opt_in(true, device, kSmemOptIn);
+  if (e == cudaSuccess) e = opt_in(false, device, kSmemOptIn);
+  return (int)e;
+}
 
 extern "C" int ge_sgns_block_grads(
     int device, const void* yin, int64_t ld_yin, const void* yout,
@@ -610,11 +637,10 @@ extern "C" int ge_sgns_block_grads(
     return (int)cudaErrorInvalidValue;
   // the DeepWalk step's shapes (D = 128, PL and K up to 128) take strides
   // known at compile time; any other takes them from Plan
-  const auto kernel = p.ldy == 132 && p.ldg == 132
-                          ? sgns_block_grads_kernel<132, 132>
-                          : sgns_block_grads_kernel<0, 0>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
+  const bool fixed = p.ldy == 132 && p.ldg == 132;
+  const auto kernel = fixed ? sgns_block_grads_kernel<132, 132>
+                            : sgns_block_grads_kernel<0, 0>;
+  e = opt_in(fixed, device, smem);
   if (e != cudaSuccess) return (int)e;
   // bulk copies move 16-byte-aligned multiples of 16 bytes
   const int mask_bulk = PL % 4 == 0 && (uintptr_t)mask % 16 == 0;

@@ -53,6 +53,10 @@ SIGNATURES = {
     # device, table, V, ids, N, W, B, stages, grid, smem, out, stream
     "ge_dma_gather_rows": [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "ge_error_string": [_I],
+    # device: once a process and device, before a capture (`prepare`)
+    "ge_prepare_sgns": [_I],
+    "ge_prepare_rows": [_I],
+    "ge_prepare_small": [_I],
 }
 
 RESTYPES = {"ge_error_string": ctypes.c_char_p,
@@ -166,6 +170,17 @@ def build_text(src, subdir, tag):
     dll = ctypes.CDLL(lib)
     with open(log) as f:
         return _bind(dll, [n for n in SIGNATURES if hasattr(dll, n)]), f.read()
+
+
+@functools.lru_cache(maxsize=None)
+def prepare(device_index: int) -> None:
+    """Make every kernel of a training step ready to be captured in a CUDA
+    graph on this card, once a process: each loaded, its shared memory
+    opted into and its resident blocks an SM read, so that a launch makes
+    no host API call but the launch itself. Launches nothing."""
+    lib = library()
+    for name in ("ge_prepare_sgns", "ge_prepare_rows", "ge_prepare_small"):
+        check(getattr(lib, name)(device_index), name)
 
 
 def check(err: int, what: str) -> None:

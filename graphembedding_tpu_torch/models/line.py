@@ -18,7 +18,9 @@ The draws of a chunk of steps come from a `torch.Generator` on the
 model's device (`line_bulk_samples`), and `line_steps` takes them as
 inputs, so a test can hand it the JAX package's draws. The generators'
 streams differ from JAX's, so whole trainings agree in distribution and
-micro-F1 band, not in value.
+micro-F1 band, not in value. On a card a chunk's steps replay one
+captured CUDA graph (`train.chunk_graph`); on the CPU, or through the
+plain versions, they run one by one.
 
 `trainer='dense'` optimizes LINE's EXPECTED objective in closed form
 (`train.dense.dense_fit`): the positive-pair expectation of edge sampling
@@ -58,6 +60,7 @@ from graphembedding_tpu_torch.parallel.mesh import (
     put_global,
     rank_seed,
 )
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 from graphembedding_tpu_torch.train.dense import (
     DenseSGNSConfig,
     dense_fit,
@@ -176,15 +179,29 @@ def line_step(emb, ctx, h, tpos, tneg, lr, *, negative, k_shared=0,
     return -(F.logsigmoid(pos_logit).mean() + neg_loss.mean())
 
 
+def _chunk_step(b, s, ops, *, negative, k_shared, update_cap):
+    """Step s of a chunk on its buffers (`chunk_graph.run_chunk`)."""
+    return (line_step(b["emb"], b.get("ctx"), b["hs"][s], b["tposs"][s],
+                      b["tnegs"][s], b["lrs"][s], negative=negative,
+                      k_shared=k_shared, update_cap=update_cap, ops=ops),)
+
+
 def line_steps(emb, ctx, hs, tposs, tnegs, lrs, *, negative, k_shared=0,
                update_cap=8.0, ops=KERNELS):
-    """S = hs.shape[0] steps on given draws (the JAX chunk's scan).
-    Returns (emb, ctx, losses [S]); the tables are updated in place."""
-    losses = [line_step(emb, ctx, hs[s], tposs[s], tnegs[s], lrs[s],
-                        negative=negative, k_shared=k_shared,
-                        update_cap=update_cap, ops=ops)
-              for s in range(hs.shape[0])]
-    return emb, ctx, torch.stack(losses)
+    """S = hs.shape[0] steps on given draws (the JAX chunk's scan), lrs a
+    float32 tensor [S]. Returns (emb, ctx, losses [S]); the tables are
+    updated in place.
+
+    On a card the S steps through the kernels replay one captured CUDA
+    graph (`chunk_graph.run_chunk`); on the CPU, or through the plain
+    versions (`ops=PLAIN`), they are launched one by one."""
+    tables = {"emb": emb} if ctx is None else {"emb": emb, "ctx": ctx}
+    inputs = dict(hs=hs, tposs=tposs, tnegs=tnegs, lrs=lrs)
+    consts = dict(negative=negative, k_shared=k_shared,
+                  update_cap=update_cap)
+    losses, = run_chunk(_chunk_step, hs.shape[0], tables, inputs, ops=ops,
+                        plain=PLAIN, consts=consts)
+    return emb, ctx, losses
 
 
 def line_train_chunk(emb, ctx, edge_src, edge_dst, edge_accept, edge_alias,

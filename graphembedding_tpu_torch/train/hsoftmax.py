@@ -23,7 +23,9 @@ precision to "highest" (no TF32) while it runs.
 The window draws of a chunk (`eff`) are an input of `hs_block_chunk`, so a
 test can hand it the JAX package's draws; `HSTrainer.fit` makes them with
 a `torch.Generator`, and checkpoints, resumes and logs metrics as
-`SkipGramTrainer.fit` does.
+`SkipGramTrainer.fit` does. On a card a chunk's steps replay one captured
+CUDA graph (`train.chunk_graph`), captured under the same full-float32
+setting; on the CPU, or through the plain versions, they run one by one.
 
 `HSTrainer(mesh=, sync_every=)` trains over a mesh
 (`parallel/hsoftmax.py`). Not ported: the sparse cap form (the dense form
@@ -39,9 +41,11 @@ import torch
 import torch.nn.functional as F
 
 from graphembedding_tpu_torch.ops.rows import ROW_KERNELS, ROW_PLAIN
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 from graphembedding_tpu_torch.train.skipgram import (
     Resume,
     block_geometry,
+    chunk_blocks,
     corpus_counts,
     fit_block_walks,
     keep_per_token,
@@ -125,7 +129,8 @@ def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
     w_tree [n_inner, D] in place.
 
     tok [G, PL] token ids (-1 pads), eff_b [G, PL] window draws, points /
-    codes [V, T] the tree paths. `reduce`, when given, completes partial
+    codes [V, T] the tree paths, lr a float or a 0-d float32 tensor of the
+    same value (the same bits). `reduce`, when given, completes partial
     logits (over a column slice of the tables) before the sigmoid: the
     mesh's tensor-parallel step sums them over its model axis. Returns
     (loss, pairs) as 0-d tensors.
@@ -189,6 +194,14 @@ def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
     return -(ll * gate_n).sum() / pairs.clamp(min=1.0), pairs
 
 
+def _chunk_step(b, s, ops, *, update_cap):
+    """Step s of a chunk on its buffers (`chunk_graph.run_chunk`)."""
+    return hs_step(b["w_in"], b["w_tree"], b["tokens"][s], b["eff"][s],
+                   b["points"], b["codes"], b["lrs"][s],
+                   window_ok=b["window_ok"], dm=b["dm"],
+                   update_cap=update_cap, ops=ops)
+
+
 def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
                    t0, total_steps, *, block_walks, window, update_cap=8.0,
                    ops=KERNELS):
@@ -199,6 +212,10 @@ def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
     computed in float32 as the JAX package does. `eff` [S, G, PL] holds
     the window draws in {1..window}. Updates w_in and w_tree in place and
     returns (w_in, w_tree, losses [S], pairs [S]).
+
+    On a card the S steps through the kernels replay one captured CUDA
+    graph (`chunk_graph.run_chunk`); on the CPU, or through the plain
+    versions (`ops=PLAIN`), they are launched one by one.
     """
     NW, L = walks.shape
     geo = block_geometry(NW, L, block_walks, 1)
@@ -206,18 +223,16 @@ def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
     if tuple(eff.shape) != (S, geo.G, geo.PL):
         raise ValueError(f"draws eff {tuple(eff.shape)} do not match {geo}")
     window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    lrs = step_lrs(t0, S, alpha, min_alpha, total_steps)
-    losses, pairs = [], []
+    lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha, total_steps),
+                          device=walks.device)
+    inputs = dict(tokens=chunk_blocks(walks, t0, S, geo), eff=eff,
+                  points=points, codes=codes, lrs=lrs, window_ok=window_ok,
+                  dm=dm)
     with f32_matmul():
-        for s in range(S):
-            off = (t0 + s) % geo.n_blocks * geo.Bw
-            tok = walks[off: off + geo.Bw].reshape(geo.G, geo.PL)
-            loss, p = hs_step(w_in, w_tree, tok, eff[s], points, codes,
-                              float(lrs[s]), window_ok=window_ok, dm=dm,
-                              update_cap=float(update_cap), ops=ops)
-            losses.append(loss)
-            pairs.append(p)
-    return w_in, w_tree, torch.stack(losses), torch.stack(pairs)
+        losses, pairs = run_chunk(
+            _chunk_step, S, {"w_in": w_in, "w_tree": w_tree}, inputs,
+            ops=ops, plain=PLAIN, consts={"update_cap": float(update_cap)})
+    return w_in, w_tree, losses, pairs
 
 
 class HSTrainer:

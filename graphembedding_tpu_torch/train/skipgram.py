@@ -12,7 +12,9 @@ sequential-update magnitudes.
 The random draws of a chunk of steps (`eff`, the dynamic window, and
 `negs`, the shared negatives) are inputs of `sgns_block_chunk_cat`, so a
 test can hand it the JAX package's draws; `SkipGramTrainer.fit` makes
-them with a `torch.Generator`.
+them with a `torch.Generator`. On a card a chunk's steps replay one
+captured CUDA graph (`train.chunk_graph`, the JAX package's `lax.scan`);
+on the CPU, or through the plain versions, they run one by one.
 
 `SkipGramTrainer.fit` checkpoints and resumes (`utils.checkpoint`, with
 the generator's states, so a resumed fit is bit-identical to an
@@ -41,6 +43,7 @@ from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads,
     sgns_block_grads_plain,
 )
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 from graphembedding_tpu_torch.utils.checkpoint import maybe_save, try_restore
 from graphembedding_tpu_torch.utils.debug import (
     validate_walks,
@@ -281,7 +284,8 @@ def capped_update(w_cat, tbuf, nbuf, lr, update_cap):
 def sgns_step(w_cat, tok, eff_b, neg, lr, *, window_ok, dm, nsp, neg_w,
               update_cap, ops=KERNELS):
     """One SGNS step with the dense update cap; updates w_cat in place.
-    Returns (loss, pairs) as 0-d tensors."""
+    lr: a float, or a 0-d float32 tensor of the same value (the same
+    bits). Returns (loss, pairs) as 0-d tensors."""
     V, C = w_cat.shape
     D = C // 2
     _, y, vn, mask, neg_ok = step_inputs(
@@ -328,6 +332,22 @@ def step_lrs(t0, S, alpha, min_alpha, total_steps):
                              / np.float32(total_steps)))
 
 
+def chunk_blocks(walks, t0, S, geo):
+    """The token blocks of steps t0 .. t0 + S - 1 as [S, G, PL]: step t's
+    block is walks [((t0 + t) % n_blocks) * Bw : + Bw], packed as G groups
+    of PL positions; one gather of whole blocks."""
+    blocks = walks[:geo.n_blocks * geo.Bw].reshape(geo.n_blocks, -1)
+    ids = torch.arange(t0, t0 + S, device=walks.device) % geo.n_blocks
+    return blocks.index_select(0, ids).view(S, geo.G, geo.PL)
+
+
+def _chunk_step(b, s, ops, *, nsp, neg_w, update_cap):
+    """Step s of a chunk on its buffers (`chunk_graph.run_chunk`)."""
+    return sgns_step(b["w_cat"], b["tokens"][s], b["eff"][s], b["negs"][s],
+                     b["lrs"][s], window_ok=b["window_ok"], dm=b["dm"],
+                     nsp=nsp, neg_w=neg_w, update_cap=update_cap, ops=ops)
+
+
 def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
                          total_steps, *, block_walks, window, negative,
                          neg_share_packs=1, update_cap=8.0, ops=KERNELS):
@@ -339,6 +359,10 @@ def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
     the window draws in {1..window} and `negs` [S, G2, K] the shared
     negative ids. Updates w_cat [V, 2D] in place and returns
     (w_cat, losses [S], pairs [S]).
+
+    On a card the S steps through the kernels replay one captured CUDA
+    graph (`chunk_graph.run_chunk`); on the CPU, or through the plain
+    versions (`ops=PLAIN`), they are launched one by one.
     """
     NW, L = walks.shape
     geo = block_geometry(NW, L, block_walks, neg_share_packs)
@@ -349,19 +373,16 @@ def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
         raise ValueError(f"draws eff {tuple(eff.shape)} / negs "
                          f"{tuple(negs.shape)} do not match {geo}")
     window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    lrs = step_lrs(t0, S, alpha, min_alpha, total_steps)
-    neg_w = float(np.float32(negative) / np.float32(K))
-    losses, pairs = [], []
-    for s in range(S):
-        off = (t0 + s) % geo.n_blocks * geo.Bw
-        tok = walks[off: off + geo.Bw].reshape(geo.G, geo.PL)
-        loss, p = sgns_step(
-            w_cat, tok, eff[s], negs[s], float(lrs[s]), window_ok=window_ok,
-            dm=dm, nsp=geo.nsp, neg_w=neg_w, update_cap=float(update_cap),
-            ops=ops)
-        losses.append(loss)
-        pairs.append(p)
-    return w_cat, torch.stack(losses), torch.stack(pairs)
+    lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha, total_steps),
+                          device=walks.device)
+    inputs = dict(tokens=chunk_blocks(walks, t0, S, geo), eff=eff, negs=negs,
+                  lrs=lrs, window_ok=window_ok, dm=dm)
+    consts = dict(nsp=geo.nsp, neg_w=float(np.float32(negative)
+                                            / np.float32(K)),
+                  update_cap=float(update_cap))
+    losses, pairs = run_chunk(_chunk_step, S, {"w_cat": w_cat}, inputs,
+                              ops=ops, plain=PLAIN, consts=consts)
+    return w_cat, losses, pairs
 
 
 def plan_block_walks(NW, L, num_nodes, cfg) -> int:

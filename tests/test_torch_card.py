@@ -836,3 +836,211 @@ def test_most_similar_on_card_matches_numpy(cuda, monkeypatch):
         tied = {n for n, s in w if abs(s - w[-1][1]) <= 1e-5}
         assert {n for n, _ in g} ^ {n for n, _ in w} <= tied | {
             n for n, s in g if abs(s - w[-1][1]) <= 1e-5}
+
+
+# ---- a chunk of steps as one CUDA graph (train/chunk_graph.py) --------
+
+def wiki_walks(cuda, seed=1):
+    ds = load_dataset("wiki")
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return ds.graph.num_nodes, simulate_walks(ds.graph, 80, 10, generator=gen)
+
+
+def sgns_chunks(cuda):
+    """DeepWalk on Wiki's step (Bw = 4032: 47 blocks), two chunks of 4
+    steps, the second over blocks 45, 46, 0, 1."""
+    V, walks = wiki_walks(cuda)
+    D, K, W = 128, 64, 5
+    geo = sg.block_geometry(walks.shape[0], 10, 4032, 4)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    w0 = torch.cat([(torch.rand((V, D), generator=gen, device=cuda) - 0.5)
+                    / D, torch.randn((V, D), generator=gen, device=cuda)
+                    * 0.05], 1)
+    draws = [(t0, sg.window_draws(gen, (4, geo.G, geo.PL), W),
+              torch.randint(0, V, (4, geo.G2, K), generator=gen,
+                            device=cuda, dtype=torch.int32))
+             for t0 in (0, geo.n_blocks - 2)]
+
+    def run():
+        w, out = w0.clone(), []
+        for t0, eff, negs in draws:
+            _, losses, pairs = sg.sgns_block_chunk_cat(
+                w, walks, eff, negs, 0.025, 1e-4, t0, 192.0, block_walks=4032,
+                window=W, negative=5, neg_share_packs=4)
+            out += [losses, pairs]
+        return [w, *out]
+    return run
+
+
+def hs_chunks(cuda, tree):
+    """DeepWalk hs=1 on Wiki's step (Bw = 504: 381 blocks; the Huffman tree
+    of the corpus, [2404, 128]) or a 130-row tree (Struc2Vec's on
+    flight-brazil: 131 nodes, 10,480 walks of 10, 20 blocks): two chunks of
+    4 steps, the second wrapping around the blocks."""
+    if tree == "wiki":
+        V, walks = wiki_walks(cuda)
+    else:
+        V = 131
+        rng = np.random.default_rng(3)
+        walks = torch.as_tensor(
+            np.minimum(rng.zipf(1.6, (80 * V, 10)) - 1, V - 1).astype(
+                np.int32), device=cuda)
+    D, W = 128, 5
+    points, codes, _ = hs.build_huffman(sg.corpus_counts(walks, V))
+    points = torch.as_tensor(points, device=cuda)
+    codes = torch.as_tensor(codes, device=cuda)
+    geo = sg.block_geometry(walks.shape[0], 10, 504, 1)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    w_in0 = (torch.rand((V, D), generator=gen, device=cuda) - 0.5) / D
+    w_tree0 = torch.randn((V - 1, D), generator=gen, device=cuda) * 0.05
+    draws = [(t0, sg.window_draws(gen, (4, geo.G, geo.PL), W))
+             for t0 in (0, geo.n_blocks - 2)]
+
+    def run():
+        w_in, w_tree, out = w_in0.clone(), w_tree0.clone(), []
+        for t0, eff in draws:
+            *_, losses, pairs = hs.hs_block_chunk(
+                w_in, w_tree, walks, points, codes, eff, 0.025, 1e-4, t0,
+                1152.0, block_walks=504, window=W)
+            out += [losses, pairs]
+        return [w_in, w_tree, *out]
+    return run
+
+
+def line_chunks(cuda, order):
+    """LINE on Wiki's step (B = 1024, K = 5): two chunks of 8 steps."""
+    ds = load_dataset("wiki")
+    m = LINE(ds.graph, embedding_size=128, order=order, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    draws = [line.line_bulk_samples(
+        m._edge_src, m._edge_dst, m._edge_accept, m._edge_alias,
+        m._neg_table, gen, 0.025, t0, 796.0, chunk_steps=8, batch_size=1024,
+        negative=5, k_shared=0) for t0 in (0, 8)]
+    emb0, ctx0 = ((m.first_emb, None) if order == "first"
+                  else (m.second_emb, m.context_emb))
+
+    def run():
+        emb = emb0.clone()
+        ctx = None if ctx0 is None else ctx0.clone()
+        out = []
+        for d in draws:
+            out.append(line.line_steps(emb, ctx, *d, negative=5)[2])
+        return [emb, *out] + ([] if ctx is None else [ctx])
+    return run
+
+
+@pytest.mark.parametrize("kind", ["sgns", "hs wiki", "hs tree",
+                                  "line second", "line first"])
+def test_chunk_graph_equals_the_loop_on_card(cuda, kind, monkeypatch):
+    """Two chunks replayed from one captured CUDA graph torch.equal to the
+    same chunks launched one by one (the card taken out of
+    `chunk_graph.CAPTURES`; tables, losses, pairs), the second chunk
+    wrapping around the corpus' blocks, with the same launches of each
+    kernel (K2's and K4's cooperative launches and K1's cluster launch as
+    graph nodes)."""
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    run = {"sgns": lambda: sgns_chunks(cuda),
+           "hs wiki": lambda: hs_chunks(cuda, "wiki"),
+           "hs tree": lambda: hs_chunks(cuda, "tree"),
+           "line second": lambda: line_chunks(cuda, "second"),
+           "line first": lambda: line_chunks(cuda, "first")}[kind]()
+    kernels = (sgns_block_grads, gather_rows, scatter_add_rows,
+               scatter_add_small)
+    chunk_graph.release()
+    got = {}
+    for graphs in (False, True, True):  # the loop; a capture; replays only
+        with monkeypatch.context() as m:
+            if not graphs:
+                m.delitem(chunk_graph.CAPTURES, "cuda")
+            before = [k.launches for k in kernels]
+            out = run()
+            torch.cuda.synchronize()
+        got.setdefault(graphs, []).append(
+            (out, [k.launches - b for k, b in zip(kernels, before)]))
+    assert len(chunk_graph.held(cuda)) == 1
+    (loop, loop_n), = got[False]
+    for out, n in got[True]:
+        assert n == loop_n and sum(n) > 0
+        assert all(torch.equal(a, b) for a, b in zip(out, loop))
+    assert all(bool(torch.isfinite(t).all()) for t in loop)
+    assert any(t.dim() == 1 and bool((t > 0).all()) for t in loop)  # losses
+
+
+def drawing_step(b, s, ops, *, gen):
+    """A step that draws (from `gen`, or from the card's default generator
+    for None) through the kernels (ops "kernels"), not in its warm-up."""
+    if ops == "kernels":
+        b["t"].add_(torch.rand(b["t"].shape, device=b["t"].device,
+                               generator=gen))
+    return (b["t"].sum(),)
+
+
+def erring_step(b, s, ops):
+    """A step whose kernel launch returns an error (K4's group plan with
+    no scratch) through the kernels."""
+    from graphembedding_tpu_torch.kernels import build as kb
+
+    t = b["t"]
+    if ops == "kernels":
+        ids = torch.zeros(4, dtype=torch.int32, device=t.device)
+        grads = torch.ones((4, t.shape[1]), device=t.device)
+        kb.check(kb.library().ge_scatter_add_small(
+            t.device.index, t.data_ptr(), t.stride(0), t.shape[0],
+            ids.data_ptr(), grads.data_ptr(), 4, t.shape[1], None, 1,
+            kb.stream_ptr(t.device)), "scatter_add_small")
+    return (t.sum(),)
+
+
+def syncing_step(b, s, ops):
+    """A step that reads a value back to the host through the kernels (as
+    the plain scatter's boolean index does)."""
+    if ops == "kernels":
+        b["t"].mul_(float(b["t"].sum()))
+    return (b["t"].sum(),)
+
+
+def test_failed_chunk_capture_raises_on_card(cuda):
+    """A chunk whose step draws from a generator, whose kernel launch
+    returns an error, or that makes a host round trip raises; the caller's
+    table is untouched (no loop ran on it), no graph is kept and no launch
+    is counted; the card's default generator draws on after it where it
+    stood before, and the card trains on."""
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    chunk_graph.release()
+    table = torch.randn((8, 4), device=cuda)
+    want = table.clone()
+    counts = [k.launches for k in chunk_graph.COUNTERS]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    default = torch.cuda.default_generators[torch.cuda.current_device()]
+    rng = default.get_state()
+    for step, consts, match in ((drawing_step, {"gen": gen}, None),
+                                (drawing_step, {"gen": None},
+                                 "default generator"),
+                                (erring_step, {}, "scatter_add_small"),
+                                (syncing_step, {}, None)):
+        with pytest.raises(RuntimeError, match=match):
+            chunk_graph.run_chunk(step, 3, {"t": table}, {}, ops="kernels",
+                                  plain=None, consts=consts)
+        torch.cuda.synchronize()
+        assert torch.equal(table, want)
+    assert not chunk_graph.held()
+    assert [k.launches for k in chunk_graph.COUNTERS] == counts
+    after = torch.rand(16, device=cuda)
+    default.set_state(rng)
+    assert torch.equal(after, torch.rand(16, device=cuda))
+    # a chunk through the kernels after the failures
+    V, L = 50, 10
+    walks = torch.randint(0, V, (504, L), device=cuda, dtype=torch.int32)
+    points, codes, _ = hs.build_huffman(sg.corpus_counts(walks, V))
+    w_in, w_tree = torch.randn((V, 8), device=cuda), torch.zeros(
+        (V - 1, 8), device=cuda)
+    geo = sg.block_geometry(504, L, 504, 1)
+    hs.hs_block_chunk(
+        w_in, w_tree, walks, torch.as_tensor(points, device=cuda),
+        torch.as_tensor(codes, device=cuda),
+        torch.full((2, geo.G, geo.PL), 2, dtype=torch.int32, device=cuda),
+        0.025, 1e-4, 0, 2.0, block_walks=504, window=2)
+    torch.cuda.synchronize()
+    assert w_tree.any() and len(chunk_graph.held()) == 1
