@@ -89,21 +89,24 @@ Phases, one or more lines each:
      128], device='cuda') -> train(batch_size=3000, epochs=40) (full
      batch), train(batch_size=1024, epochs=40) (minibatch) or
      train_sparse(epochs=40) -> get_embeddings -> Classifier; micro-F1 >=
-     0.72 each; cold and warm train s, rows/s (V * epochs / train s), and
-     the device time and busy share of one warm train (torch.profiler);
+     0.72 each; cold train s (the chunk graph captured), rows/s (V *
+     epochs / train s), the graphs' capture s and reserved memory; warm
+     trains, device time and busy share in phase 29;
  18. SDNE sparse at scale: synthetic_wiki(num_nodes=100_000,
      avg_degree=10.0) -> SDNE([256, 128]) -> train_sparse(epochs=2,
-     row_chunk=512), then once more warm: A and L never built, losses
-     finite, torch.cuda.max_memory_allocated() under 8 GiB (a dense [V, V]
-     alone is 40 GB), s an epoch warm; then one epoch timed alone and one
-     under torch.profiler (device time and busy share);
+     row_chunk=512) through a chunk graph, then once more warm: A and L
+     never built, losses finite, torch.cuda.max_memory_allocated() under
+     8 GiB with the graph's buffers and pool (a dense [V, V] alone is 40
+     GB), s an epoch warm; then 2 epochs timed again and 2 under
+     torch.profiler (device time and busy share);
  19. dense trainers on Wiki: DeepWalk(walk_length=10, num_walks=80) ->
      train(embed_size=128, window_size=5, trainer='dense') (micro-F1 >=
      0.93) and LINE(embedding_size=128, order='second') ->
-     train(trainer='dense') (micro-F1 >= 0.70); cold and warm train s and
-     the busy share of one warm train.
+     train(trainer='dense') (micro-F1 >= 0.70); cold train s with its
+     capture, one warm train s and its tables equal to the cold one's.
 Phases 16-19 run none of K1-K5 (their products are cuBLAS calls and
-plain PyTorch); the run fails if any kernel's count moves in them.
+plain PyTorch); the run fails if any kernel's count moves in them. Their
+trains run each chunk of steps as one CUDA graph.
  20. restartable training: each run below is cut by an exception raised
      inside it (a metrics logger that raises on its n-th line, or a
      wrapped chunk or step function), then trained again in a fresh model
@@ -114,10 +117,10 @@ plain PyTorch); the run fails if any kernel's count moves in them.
      chunks, a checkpoint every chunk, cut after chunk 2), DeepWalk hs=1
      (18 chunks, every 4, cut at chunk 7), LINE order 'all' (cut in order
      'second''s second chunk), SDNE full batch, minibatch and train_sparse
-     (40 epochs, every 10, cut in epoch 20; held against the
-     uninterrupted train with the same cadence and the train without
-     checkpoints); prints each checkpoint's bytes and its save and
-     restore seconds;
+     through the chunk graphs (40 epochs, every 10, cut as the chunk of
+     epochs 11-20 starts; held against the uninterrupted train with the
+     same cadence and the train without checkpoints); prints each
+     checkpoint's bytes and its save and restore seconds;
  21. metrics: DeepWalk and DeepWalk hs=1 trains with a MetricsLogger write
      3 and 18 JSONL lines whose (kind, epoch, step) are the JAX package's
      (tests/test_torch_checkpoint.py holds them against it on the CPU),
@@ -192,7 +195,10 @@ Phases 27-28 run none of K1-K5 in the walks; the trains launch them.
      launches equal and those of phases 5, 14, 15 and 10; for each way the
      capture s, cold and warm train s, device time and busy share of one
      warm train (torch.profiler), peak allocated and reserved memory with
-     the graph pools held; then LINE 'all' on BlogCatalog through the loop
+     the graph pools held; then the same for SDNE full batch,
+     minibatch and train_sparse on Wiki (40 epochs, micro-F1 >= 0.72) and
+     DeepWalk and LINE trainer='dense' (>= 0.93, >= 0.70), with none of
+     K1-K5 launched; then LINE 'all' on BlogCatalog through the loop
      against phase 22's train through the graphs (tables, micro-F1,
      launches).
 World size 2 on one card measures correctness and the exchanges' cost, not
@@ -215,6 +221,7 @@ for K3 and K5; none for K1), which the port never calls.
 """
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -1328,6 +1335,20 @@ def profiled_text(fn, seconds, what="train"):
             f"{prof['busy_ms'] / 1e3 / seconds:.4f}; heaviest: {heavy}")
 
 
+def graphs_text(dev):
+    """The chunk graphs held on dev: their count, capture seconds and the
+    reserved memory with their pools."""
+    import torch
+
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    graphs = chunk_graph.held(dev)
+    return (f"{len(graphs)} chunk graphs captured in "
+            f"{sum(g.seconds for g in graphs):.4f} s, reserved "
+            f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB with their "
+            f"pools held")
+
+
 def sdne_phases(dev, card):
     """Phases 16-18: SDNE steps on the card against the CPU, the three
     trainers on Wiki, and train_sparse at V = 100,000."""
@@ -1336,6 +1357,7 @@ def sdne_phases(dev, card):
     from graphembedding_tpu_torch import SDNE
     from graphembedding_tpu_torch.data import load_dataset, synthetic_wiki
     from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.train import chunk_graph
 
     # 16. three steps of each trainer, card against CPU, from the same
     # initial parameters and permutation (the port draws both on the CPU)
@@ -1398,6 +1420,7 @@ def sdne_phases(dev, card):
                 ds.X, ds.Y, 0.8, seed=0)
             return model, res, t1 - t0, t2 - t1
 
+        chunk_graph.release(dev)  # the cold train captures
         model, res, init_s, cold_s = no_kernel_launched(f"SDNE {mode}", path)
         table = model.embedding_table
         n_loss = 3 * 40 if mode == "minibatch" else 40
@@ -1408,14 +1431,12 @@ def sdne_phases(dev, card):
                  f"{tuple(model.losses.shape)} wrong or non-finite")
         if mode == "sparse" and not (model._A is None and model._L is None):
             fail("SDNE sparse: the dense A or L was built")
-        warm_s = min(timed_walks(lambda: train(model, 40))[1]
-                     for _ in range(2))
+        # warm trains, their device time and busy share: phase 29, against
+        # the step loop
         print(f"SDNE {mode} on Wiki: constructor {init_s:.4f} s, train 40 "
-              f"epochs cold {cold_s:.4f} s ({V * 40 / cold_s:.4e} rows/s), "
-              f"warm {warm_s:.4f} s ({V * 40 / warm_s:.4e} rows/s); final "
-              f"loss {float(model.losses[-1]):.4f}; "
-              f"{profiled_text(lambda: train(model, 40), warm_s)} [{card}]",
-              flush=True)
+              f"epochs cold {cold_s:.4f} s ({V * 40 / cold_s:.4e} rows/s, "
+              f"{graphs_text(dev)}); final loss "
+              f"{float(model.losses[-1]):.4f} [{card}]", flush=True)
         print(f"SDNE {mode} micro-F1: {res['micro']:.4f}, macro-F1: "
               f"{res['macro']:.4f} [{card}]", flush=True)
         if not res["micro"] >= SDNE_MIN_MICRO_F1:
@@ -1426,6 +1447,7 @@ def sdne_phases(dev, card):
     t0 = time.perf_counter()
     big = synthetic_wiki(num_nodes=100_000, avg_degree=10.0).graph
     t1 = time.perf_counter()
+    chunk_graph.release(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     model = SDNE(big, hidden_size=[256, 128], device=dev)
@@ -1435,30 +1457,34 @@ def sdne_phases(dev, card):
     _, warm_s = timed_walks(lambda: model.train_sparse(epochs=2,
                                                        row_chunk=512))
     peak = torch.cuda.max_memory_allocated()
+    held = graphs_text(dev)
     if not (model._A is None and model._L is None):
         fail("SDNE sparse at 100k: the dense A or L was built")
     if model.losses.shape != (2,) or not torch.isfinite(model.losses).all():
         fail(f"SDNE sparse at 100k: losses {model.losses.tolist()}")
     nbr_width = big.neighbor_ids(dev).shape[1]
     losses = [round(x, 2) for x in model.losses.tolist()]
-    _, epoch_s = timed_walks(lambda: model.train_sparse(epochs=1,
+    # a train of another epoch count would capture another graph: the
+    # profile is of the 2-epoch graph's replay
+    _, again_s = timed_walks(lambda: model.train_sparse(epochs=2,
                                                         row_chunk=512))
-    one_epoch = profiled_text(
-        lambda: model.train_sparse(epochs=1, row_chunk=512), epoch_s,
-        "epoch")
+    profiled = profiled_text(
+        lambda: model.train_sparse(epochs=2, row_chunk=512), again_s,
+        "2-epoch train")
     print(f"SDNE sparse at V={big.num_nodes} ({big.num_edges} edges, "
           f"neighbor matrix [{big.num_nodes}, {nbr_width}], "
           f"{-(-big.num_nodes // 512)} chunks of [512, {big.num_nodes}]): "
           f"graph {t1 - t0:.2f} s (host); 2 epochs cold {cold_s:.4f} s, "
-          f"warm {warm_s:.4f} s = {warm_s / 2:.4f} s an epoch; losses "
-          f"{losses}; A and L never built; peak allocated "
+          f"warm {warm_s:.4f} s = {warm_s / 2:.4f} s an epoch ({held}); "
+          f"losses {losses}; A and L never built; peak allocated "
           f"{peak / 2**30:.3f} GiB (bound "
           f"{SDNE_SPARSE_MAX_BYTES / 2**30:.0f} GiB; a dense [V, V] is "
-          f"{4 * big.num_nodes ** 2 / 1e9:.0f} GB); one more epoch "
-          f"{epoch_s:.4f} s, {one_epoch} [{card}]",
+          f"{4 * big.num_nodes ** 2 / 1e9:.0f} GB); 2 epochs again "
+          f"{again_s:.4f} s, {profiled} [{card}]",
           flush=True)
     if peak >= SDNE_SPARSE_MAX_BYTES:
         fail(f"SDNE sparse at 100k: peak {peak} bytes over the bound")
+    chunk_graph.release(dev)  # their pools hold some GiB
 
 
 def dense_phase(dev, card):
@@ -1468,6 +1494,7 @@ def dense_phase(dev, card):
     from graphembedding_tpu_torch import LINE, DeepWalk
     from graphembedding_tpu_torch.data import load_dataset
     from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.train import chunk_graph
 
     ds = load_dataset("wiki")
     V = ds.graph.num_nodes
@@ -1486,6 +1513,7 @@ def dense_phase(dev, card):
             _, cold_s = timed_walks(lambda: train(model))
             return model, cold_s
 
+        chunk_graph.release(dev)  # the cold train captures
         model, cold_s = no_kernel_launched(f"{name} dense", path)
         table = model.embedding_table.clone()
         if (tuple(table.shape) != (V, 128) or not torch.isfinite(table).all()
@@ -1494,14 +1522,14 @@ def dense_phase(dev, card):
                  f"non-finite")
         res = Classifier(model.get_embeddings()).split_train_evaluate(
             ds.X, ds.Y, 0.8, seed=0)
-        warm_s = min(timed_walks(lambda: train(model))[1] for _ in range(2))
+        _, warm_s = timed_walks(lambda: train(model))
         if not torch.equal(model.embedding_table, table):
             fail(f"{name} dense: a second train gave other tables")
+        # its device time and busy share: phase 29, against the step loop
         print(f"{name} trainer='dense' on Wiki (300 Adam steps): train cold "
-              f"{cold_s:.4f} s, warm {warm_s:.4f} s, bit-identical on a "
-              f"second train; final loss {float(model.losses[-1]):.4f}; "
-              f"{profiled_text(lambda: train(model), warm_s)} [{card}]",
-              flush=True)
+              f"{cold_s:.4f} s ({graphs_text(dev)}), warm {warm_s:.4f} s, "
+              f"bit-identical on a second train; final loss "
+              f"{float(model.losses[-1]):.4f} [{card}]", flush=True)
         print(f"{name} dense micro-F1: {res['micro']:.4f}, macro-F1: "
               f"{res['macro']:.4f} [{card}]", flush=True)
         if not res["micro"] >= gate:
@@ -1558,6 +1586,97 @@ def checkpoint_timer():
     return times, undo
 
 
+def report_resumed(card, what, d, times, resumed_steps, launches,
+                   extra=""):
+    """Phase 20's line for a resumed train: its checkpoint's bytes, the
+    saves' and the restore's seconds."""
+    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(d) for f in fs)
+    print(f"{what}: resumed train bit-identical to the uninterrupted "
+          f"one; {resumed_steps} steps resumed, launches {launches}; "
+          f"checkpoint {nbytes} bytes, {len(times['save'])} saves "
+          f"{min(times['save']):.4f}-{max(times['save']):.4f} s, "
+          f"restore {times['load'][-1]:.4f} s{extra} [{card}]",
+          flush=True)
+
+
+def sdne_restart_phase(dev, card, ds, tmp):
+    """Phase 20's SDNE trains on the Wiki dataset ds, checkpoints under
+    tmp."""
+    import torch
+
+    from graphembedding_tpu_torch import SDNE
+    from graphembedding_tpu_torch.models import sdne as sdne_mod
+
+    report = functools.partial(report_resumed, card)
+    # SDNE: 40 epochs, a checkpoint every 10, cut as the chunk of epochs
+    # 11-20 starts (each chunk one CUDA graph); the chunks' graphs of the
+    # train without checkpoints (40 steps) and with them (10) stay cached
+    trains = {
+        "full batch": (lambda m, **k: m.train(batch_size=3000, epochs=40,
+                                              **k), 1),
+        "minibatch": (lambda m, **k: m.train(batch_size=1024, epochs=40,
+                                             **k), 3),
+        "sparse": (lambda m, **k: m.train_sparse(epochs=40, row_chunk=512,
+                                                 **k), 1),
+    }
+    chunk_fn = sdne_mod.adam_chunk
+
+    def params(m):
+        return [p.detach().clone() for p in m.net.parameters()]
+
+    for mode, (train, per_epoch) in trains.items():
+        def sdne_run():
+            plain = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
+            train(plain)
+            d = os.path.join(tmp, f"sdne_{mode.replace(' ', '_')}")
+            cadence = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
+            train(cadence, checkpoint_dir=d + "_full", checkpoint_every=10)
+            calls = []
+
+            def cut_chunk(*a, **k):
+                calls.append(1)
+                if len(calls) == 2:
+                    raise Interrupt
+                return chunk_fn(*a, **k)
+
+            times, undo = checkpoint_timer()
+            sdne_mod.adam_chunk = cut_chunk
+            try:
+                train(SDNE(ds.graph, hidden_size=[256, 128], device=dev),
+                      checkpoint_dir=d, checkpoint_every=10)
+                fail(f"SDNE {mode}: the interrupt did not fire")
+            except Interrupt:
+                pass
+            finally:
+                sdne_mod.adam_chunk = chunk_fn
+            m = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
+            train(m, checkpoint_dir=d, checkpoint_every=10)
+            torch.cuda.synchronize()
+            undo()
+            return plain, cadence, m, d, times
+
+        plain, cadence, m, d, times = no_kernel_launched(
+            f"SDNE {mode} resume", sdne_run)
+        got = params(m)
+        if not (all(torch.equal(a, b) for a, b in zip(got, params(cadence)))
+                and torch.equal(m.losses, cadence.losses[10 * per_epoch:])):
+            fail(f"SDNE {mode}: the resumed train differs from the "
+                 f"uninterrupted one with the same cadence")
+        same_plain = all(torch.equal(a, b)
+                         for a, b in zip(got, params(plain)))
+        if not same_plain:
+            fail(f"SDNE {mode}: the resumed train differs from the train "
+                 f"without checkpoints")
+        report(f"SDNE {mode} on Wiki cut as epochs 11-20 of 40 start (a "
+               f"checkpoint every 10, resumed from epoch 10; "
+               f"{graphs_text(dev)})", d, times,
+               m.losses.shape[0],
+               {k: 0 for k in kernel_counts()},
+               "; also bit-identical to the train without checkpoints")
+
+
+
 def restart_phases(dev, card):
     """Phases 20-21: interrupted and resumed trains bit-identical to
     uninterrupted ones, with the kernels launched for the steps that
@@ -1566,10 +1685,9 @@ def restart_phases(dev, card):
 
     import torch
 
-    from graphembedding_tpu_torch import LINE, SDNE, DeepWalk
+    from graphembedding_tpu_torch import LINE, DeepWalk
     from graphembedding_tpu_torch.data import load_dataset
     from graphembedding_tpu_torch.models import line as line_mod
-    from graphembedding_tpu_torch.models import sdne as sdne_mod
     from graphembedding_tpu_torch.utils import checkpoint as ck
     from graphembedding_tpu_torch.utils.metrics import MetricsLogger
 
@@ -1587,16 +1705,7 @@ def restart_phases(dev, card):
 
     ds = load_dataset("wiki")
     tmp = tempfile.mkdtemp(prefix="ge_ckpt_")
-
-    def report(what, d, times, resumed_steps, launches, extra=""):
-        nbytes = sum(os.path.getsize(os.path.join(r, f))
-                     for r, _, fs in os.walk(d) for f in fs)
-        print(f"{what}: resumed train bit-identical to the uninterrupted "
-              f"one; {resumed_steps} steps resumed, launches {launches}; "
-              f"checkpoint {nbytes} bytes, {len(times['save'])} saves "
-              f"{min(times['save']):.4f}-{max(times['save']):.4f} s, "
-              f"restore {times['load'][-1]:.4f} s{extra} [{card}]",
-              flush=True)
+    report = functools.partial(report_resumed, card)
 
     # 20. DeepWalk SGNS (3 chunks, a checkpoint every chunk, cut after
     # chunk 2) and hs=1 (18 chunks, every 4, cut at chunk 7)
@@ -1681,68 +1790,7 @@ def restart_phases(dev, card):
     report("LINE order 'all' on Wiki cut in order 'second''s chunk 2 (a "
            "checkpoint every chunk)", d, times, steps, launches)
 
-    # SDNE: 40 epochs, a checkpoint every 10, cut in epoch 20
-    trains = {
-        "full batch": (lambda m, **k: m.train(batch_size=3000, epochs=40,
-                                              **k), 1),
-        "minibatch": (lambda m, **k: m.train(batch_size=1024, epochs=40,
-                                             **k), 3),
-        "sparse": (lambda m, **k: m.train_sparse(epochs=40, row_chunk=512,
-                                                 **k), 1),
-    }
-    step_fn = sdne_mod.adam_step
-
-    def params(m):
-        return [p.detach().clone() for p in m.net.parameters()]
-
-    for mode, (train, per_epoch) in trains.items():
-        def sdne_run():
-            plain = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
-            train(plain)
-            d = os.path.join(tmp, f"sdne_{mode.replace(' ', '_')}")
-            cadence = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
-            train(cadence, checkpoint_dir=d + "_full", checkpoint_every=10)
-            calls = []
-
-            def cut_step(*a, **k):
-                calls.append(1)
-                if len(calls) == 19 * per_epoch + 1:
-                    raise Interrupt
-                return step_fn(*a, **k)
-
-            times, undo = checkpoint_timer()
-            sdne_mod.adam_step = cut_step
-            try:
-                train(SDNE(ds.graph, hidden_size=[256, 128], device=dev),
-                      checkpoint_dir=d, checkpoint_every=10)
-                fail(f"SDNE {mode}: the interrupt did not fire")
-            except Interrupt:
-                pass
-            finally:
-                sdne_mod.adam_step = step_fn
-            m = SDNE(ds.graph, hidden_size=[256, 128], device=dev)
-            train(m, checkpoint_dir=d, checkpoint_every=10)
-            torch.cuda.synchronize()
-            undo()
-            return plain, cadence, m, d, times
-
-        plain, cadence, m, d, times = no_kernel_launched(
-            f"SDNE {mode} resume", sdne_run)
-        got = params(m)
-        if not (all(torch.equal(a, b) for a, b in zip(got, params(cadence)))
-                and torch.equal(m.losses, cadence.losses[10 * per_epoch:])):
-            fail(f"SDNE {mode}: the resumed train differs from the "
-                 f"uninterrupted one with the same cadence")
-        same_plain = all(torch.equal(a, b)
-                         for a, b in zip(got, params(plain)))
-        if not same_plain:
-            fail(f"SDNE {mode}: the resumed train differs from the train "
-                 f"without checkpoints")
-        report(f"SDNE {mode} on Wiki cut in epoch 20 of 40 (a checkpoint "
-               f"every 10, resumed from epoch 10)", d, times,
-               m.losses.shape[0],
-               {k: 0 for k in kernel_counts()},
-               "; also bit-identical to the train without checkpoints")
+    sdne_restart_phase(dev, card, ds, tmp)
 
     # 21. metrics: one line a chunk, no bit of the train moved
     for hs, n_lines in ((0, 3), (1, 18)):
@@ -1847,7 +1895,7 @@ def chunk_graph_phase(dev, card, blogcatalog):
 
     import torch
 
-    from graphembedding_tpu_torch import LINE, DeepWalk, Struc2Vec
+    from graphembedding_tpu_torch import LINE, SDNE, DeepWalk, Struc2Vec
     from graphembedding_tpu_torch.benchmarks.train_profile import (
         breakdown, device_events as profile_events)
     from graphembedding_tpu_torch.data import load_dataset
@@ -1884,6 +1932,27 @@ def chunk_graph_phase(dev, card, blogcatalog):
          {"sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 2048,
           "scatter_add_small": 2048}),
     ]
+    # SDNE and the dense trainer: none of K1-K5 (want_n None)
+    sdne_params = lambda m: list(m.net.parameters())  # noqa: E731
+    for mode, train in (
+            ("full batch", lambda m: m.train(batch_size=3000, epochs=40)),
+            ("minibatch", lambda m: m.train(batch_size=1024, epochs=40)),
+            ("train_sparse", lambda m: m.train_sparse(epochs=40,
+                                                      row_chunk=512))):
+        paths.append((f"SDNE {mode} on Wiki", wiki,
+                      lambda: SDNE(wiki.graph, hidden_size=[256, 128],
+                                   device=dev), train, sdne_params,
+                      SDNE_MIN_MICRO_F1, None))
+    paths += [
+        ("DeepWalk trainer='dense' on Wiki", wiki, lambda: dw,
+         lambda m: m.train(embed_size=128, window_size=5, trainer="dense"),
+         walk_tables, DENSE_DW_MIN_MICRO_F1, None),
+        ("LINE trainer='dense' on Wiki", wiki,
+         lambda: LINE(wiki.graph, embedding_size=128, order="second",
+                      device=dev), lambda m: m.train(trainer="dense"),
+         lambda m: (m.second_emb, m.context_emb), DENSE_LINE_MIN_MICRO_F1,
+         None),
+    ]
     for name, ds, build, train, tables_of, gate, want_n in paths:
         ways = {}
         for way in ("loop", "graph"):
@@ -1891,8 +1960,10 @@ def chunk_graph_phase(dev, card, blogcatalog):
             with step_loop() if way == "loop" else contextlib.nullcontext():
                 model = build()
                 (_, cold), launches = counted(
-                    lambda: timed_walks(lambda: train(model)))
-                tables = [t.clone() for t in tables_of(model)]
+                    lambda: timed_walks(lambda: train(model)) if want_n
+                    else no_kernel_launched(name, lambda: timed_walks(
+                        lambda: train(model))))
+                tables = [t.detach().clone() for t in tables_of(model)]
                 res = Classifier(model.get_embeddings()).split_train_evaluate(
                     ds.X, ds.Y, 0.8, seed=0)
                 graphs = chunk_graph.held(dev)
@@ -1922,6 +1993,7 @@ def chunk_graph_phase(dev, card, blogcatalog):
         if f_loop != f_graph or not f_graph >= gate:
             fail(f"{name}: micro-F1 {f_graph} (graphs) against {f_loop} "
                  f"(loop), gate {gate}")
+        want_n = want_n or dict.fromkeys(kernel_counts(), 0)
         if n_loop != n_graph or n_graph != want_n:
             fail(f"{name}: launches {n_graph} (graphs), {n_loop} (loop), "
                  f"want {want_n}")

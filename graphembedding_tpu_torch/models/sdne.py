@@ -10,7 +10,7 @@ last. The objective is
     symmetrized adjacency;
   - the L1 and L2 weight penalty (nu1, nu2) over every layer's weights.
 
-Three trainers, each Adam (`torch.optim.Adam`, optax.adam's constants):
+Three trainers, each Adam in the form of optax.adam (`train/adam.py`):
   - `train(batch_size >= V)`: full batch, one step an epoch on the dense
     [V, V] A and L;
   - `train(batch_size < V)`: the reference's minibatch loop,
@@ -22,6 +22,17 @@ Three trainers, each Adam (`torch.optim.Adam`, optax.adam's constants):
     reconstruction is summed in row chunks, each rebuilt from the padded
     neighbor matrix and run under `torch.utils.checkpoint`, so autograd
     keeps no chunk's [C, V].
+
+Each chunk of epochs (all of them without checkpoints) runs as the JAX
+package's one `lax.scan`: on a card its steps replay one captured CUDA
+graph (`train/chunk_graph.py`), on the CPU they are launched one by one,
+the graph's plain version. A step (`adam_step`) reads the weights, Adam's
+state and its inputs from the graph's buffers: the parameters as
+autograd leaves aliasing those buffers, the gradients by
+`torch.autograd.grad`, the update in place. The inputs are the dense A and
+L, the minibatch loop's batches of a chunk (its permutations drawn before
+the chunk, in the order of its epochs) or the CSRs as their three dense
+tensors each, and the steps' bias corrections.
 
 Weights are Glorot-uniform with zero biases, drawn from a
 `torch.Generator(seed)` on the CPU and then moved, so the initial
@@ -40,7 +51,7 @@ rank checkpointing its own file.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,8 +60,10 @@ from torch.utils.checkpoint import checkpoint
 
 from graphembedding_tpu_torch.models.base import as_graph, model_device
 from graphembedding_tpu_torch.ops.spmm import (
+    Csr,
     adjacency,
     csr_from_edges,
+    csr_parts,
     csr_row_sums,
     laplacian_quadratic,
     spmm,
@@ -62,6 +75,8 @@ from graphembedding_tpu_torch.parallel.sdne import (
     sharded_sdne_sparse_train,
     sharded_sdne_train,
 )
+from graphembedding_tpu_torch.train.adam import Adam, AdamConfig, adam_update
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 from graphembedding_tpu_torch.utils.checkpoint import (
     save_sharded,
     save_state,
@@ -71,8 +86,14 @@ from graphembedding_tpu_torch.utils.checkpoint import (
 from graphembedding_tpu_torch.utils.precision import f32_matmul
 
 # what a checkpoint of an SDNE trainer holds (the minibatch loop's also its
-# permutation generator's state, "rng")
-SDNE_STATE_KEYS = ("params", "opt_state", "epoch")
+# permutation generator's state, "rng"); "opt_state/count" is a key of
+# opt_state, which a checkpoint of torch.optim.Adam's state lacks
+SDNE_STATE_KEYS = ("params", "opt_state/m", "opt_state/v",
+                   "opt_state/count", "epoch")
+
+
+def dense_layer(x, w, b):
+    return torch.relu(x @ w + b)
 
 
 class Dense(nn.Module):
@@ -87,21 +108,21 @@ class Dense(nn.Module):
         self.b = nn.Parameter(torch.zeros(fan_out))
 
     def forward(self, x):
-        return torch.relu(x @ self.w + self.b)
+        return dense_layer(x, self.w, self.b)
 
 
-class Autoencoder(nn.Module):
-    """The encoder stack V -> hidden_size and the decoder back to V."""
+class Layer(NamedTuple):
+    """A Dense layer as its two tensors."""
+    w: torch.Tensor
+    b: torch.Tensor
 
-    def __init__(self, num_nodes, hidden_size, seed):
-        super().__init__()
-        gen = torch.Generator().manual_seed(seed)
-        enc = [num_nodes] + list(hidden_size)
-        dec = list(reversed(hidden_size)) + [num_nodes]
-        self.enc = nn.ModuleList(
-            Dense(a, b, gen) for a, b in zip(enc, enc[1:]))
-        self.dec = nn.ModuleList(
-            Dense(a, b, gen) for a, b in zip(dec, dec[1:]))
+    def __call__(self, x):
+        return dense_layer(x, self.w, self.b)
+
+
+class Stacks:
+    """The encoder and decoder passes over `self.enc` and `self.dec`,
+    sequences of layers with `w`, `b` and a call."""
 
     def encode(self, a_rows):
         return run_stack(self.enc, a_rows)
@@ -118,6 +139,33 @@ class Autoencoder(nn.Module):
 
     def weights(self):
         return [layer.w for layer in (*self.enc, *self.dec)]
+
+
+class Autoencoder(Stacks, nn.Module):
+    """The encoder stack V -> hidden_size and the decoder back to V."""
+
+    def __init__(self, num_nodes, hidden_size, seed):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        enc = [num_nodes] + list(hidden_size)
+        dec = list(reversed(hidden_size)) + [num_nodes]
+        self.enc = nn.ModuleList(
+            Dense(a, b, gen) for a, b in zip(enc, enc[1:]))
+        self.dec = nn.ModuleList(
+            Dense(a, b, gen) for a, b in zip(dec, dec[1:]))
+
+
+class LayerStacks(Stacks):
+    """The autoencoder on given tensors: `tensors` maps the module's
+    parameter names ("enc.0.w", ...) to them."""
+
+    def __init__(self, tensors):
+        stacks = {"enc": {}, "dec": {}}
+        for name, t in tensors.items():
+            stack, i, k = name.split(".")
+            stacks[stack].setdefault(int(i), {})[k] = t
+        self.enc, self.dec = ([Layer(d[i]["w"], d[i]["b"]) for i in sorted(d)]
+                              for d in (stacks["enc"], stacks["dec"]))
 
 
 def run_stack(layers, x):
@@ -151,7 +199,11 @@ def sdne_loss(net, a_rows, l_block, alpha, beta, nu1, nu2):
     a_hat = net.decode(y)
     b_ = torch.where(a_rows != 0, beta, 1.0)
     l2nd = ((a_rows - a_hat) * b_).square().sum(-1).mean()
-    l1st = alpha * 2.0 * torch.trace(y.T @ l_block @ y) / a_rows.shape[0]
+    # tr(Y^T L Y) as its diagonal's sum: torch.trace's gradient reads the
+    # incoming gradient back to the host, which a CUDA graph's capture
+    # refuses (on the card torch.trace is this same sum)
+    l1st = (alpha * 2.0 * torch.diagonal(y.T @ l_block @ y).sum()
+            / a_rows.shape[0])
     return l2nd + l1st + weight_penalty(net, nu1, nu2), (l2nd, l1st)
 
 
@@ -176,7 +228,7 @@ def sparse_sdne_loss(net, inputs, alpha, beta, nu1, nu2, row_chunk):
     reconstruction is recomputed in the backward pass, not kept.
     """
     A, At, A_sym, deg_w, nbr, nbr_w = inputs
-    V = A.shape[0]
+    V = deg_w.shape[0]
     y = net.encode_sparse(A, At)
     l1st = alpha * 2.0 * laplacian_quadratic(A_sym, deg_w, y) / V
     l2nd = 0.0
@@ -190,14 +242,75 @@ def sparse_sdne_loss(net, inputs, alpha, beta, nu1, nu2, row_chunk):
     return l2nd + l1st + weight_penalty(net, nu1, nu2), (l2nd, l1st)
 
 
-def adam_step(opt, loss_fn):
-    """One optimizer step on loss_fn()'s loss; returns the loss, detached
-    (no host sync)."""
-    opt.zero_grad(set_to_none=True)
-    loss, _ = loss_fn()
-    loss.backward()
-    opt.step()
-    return loss.detach()
+def full_batch_objective(net, b, s, *, alpha, beta, nu1, nu2):
+    return sdne_loss(net, b["A"], b["L"], alpha, beta, nu1, nu2)[0]
+
+
+def minibatch_objective(net, b, s, *, alpha, beta, nu1, nu2):
+    """The loss of step s's batch b["idx"][s]: A[idx] and L[idx][:, idx]."""
+    idx = b["idx"][s]
+    return sdne_loss(net, b["A"][idx], b["L"][idx][:, idx], alpha, beta,
+                     nu1, nu2)[0]
+
+
+SPARSE_INPUTS = ("A", "At", "A_sym")  # the CSRs of `SDNE.sparse_inputs`
+
+
+def sparse_objective(net, b, s, *, alpha, beta, nu1, nu2, row_chunk):
+    inputs = (*(Csr(*(b[f"{k}.{f}"] for f in Csr._fields))
+                for k in SPARSE_INPUTS), b["deg_w"], b["nbr"], b["nbr_w"])
+    return sparse_sdne_loss(net, inputs, alpha, beta, nu1, nu2,
+                            row_chunk)[0]
+
+
+def sparse_buffers(inputs):
+    """`SDNE.sparse_inputs` as dense tensors by name: each CSR as its
+    three ("A.crow", "A.col", "A.values", ...)."""
+    A, At, A_sym, deg_w, nbr, nbr_w = inputs
+    return {**{f"{k}.{f}": t for k, csr in zip(SPARSE_INPUTS, (A, At, A_sym))
+               for f, t in zip(Csr._fields, csr_parts(csr))},
+            "deg_w": deg_w, "nbr": nbr, "nbr_w": nbr_w}
+
+
+def adam_step(b, s, ops, *, objective, names, adam, **kw):
+    """Step s of a chunk (`chunk_graph.run_chunk`) on its buffers: the
+    parameters "p/<name>" as autograd leaves, `objective(net, b, s, **kw)`
+    and its gradients by `torch.autograd.grad`, then Adam on "p/", "m/"
+    and "v/<name>" in place with the bias corrections b["bc1"][s] and
+    b["bc2"][s]. Returns (loss,)."""
+    del ops  # no kernel of the port
+    leaves = {k: b[f"p/{k}"].detach().requires_grad_() for k in names}
+    with torch.enable_grad():
+        loss = objective(LayerStacks(leaves), b, s, **kw)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    ps, ms, vs = ([b[f"{kind}/{k}"] for k in names] for kind in "pmv")
+    with torch.no_grad():
+        adam_update(ps, list(grads), ms, vs, b["bc1"][s], b["bc2"][s], adam)
+    return (loss.detach(),)
+
+
+def adam_chunk(opt, objective, n_steps, inputs, **kw):
+    """n_steps Adam steps of `objective` (`adam_step`) on the parameters
+    and state of `opt` (an `Adam`), with the tensors `inputs` (name ->
+    tensor); on a card one CUDA graph, on the CPU the loop. kw: the
+    objective's constants. Returns the losses [n_steps]."""
+    bc1, bc2 = opt.bias_corrections(n_steps)
+    losses, = run_chunk(
+        adam_step, n_steps, opt.tables(), {**inputs, "bc1": bc1,
+                                           "bc2": bc2},
+        consts=dict(objective=objective, names=tuple(opt.params),
+                    adam=opt.cfg, **kw))
+    opt.count += n_steps
+    return losses
+
+
+def epoch_batches(perm, batch_size):
+    """An epoch's batches [ceil(V / batch_size), batch_size]: the
+    permutation padded by its own head."""
+    V = perm.shape[0]
+    steps = -(-V // batch_size)
+    return torch.cat([perm, perm[:steps * batch_size - V]]).view(
+        steps, batch_size)
 
 
 def minibatch_epoch(net, opt, A, L, perm, batch_size, alpha, beta, nu1,
@@ -205,13 +318,11 @@ def minibatch_epoch(net, opt, A, L, perm, batch_size, alpha, beta, nu1,
     """One epoch of the reference minibatch loop on a given permutation:
     ceil(V / batch_size) steps over perm padded by its own head, each on
     A[idx] and L[idx][:, idx]. Returns the steps' losses."""
-    V = A.shape[0]
-    steps = -(-V // batch_size)
-    pad = steps * batch_size - V
-    idx_all = torch.cat([perm, perm[:pad]]).view(steps, batch_size)
-    return [adam_step(opt, lambda: sdne_loss(
-        net, A[idx], L[idx][:, idx], alpha, beta, nu1, nu2))
-        for idx in idx_all]
+    del net  # opt holds the parameters
+    idx = epoch_batches(perm, batch_size).to(A.device)
+    return list(adam_chunk(opt, minibatch_objective, idx.shape[0],
+                           {"A": A, "L": L, "idx": idx}, alpha=alpha,
+                           beta=beta, nu1=nu1, nu2=nu2))
 
 
 class SDNE:
@@ -279,11 +390,13 @@ class SDNE:
         return self._sparse
 
     def _consts(self):
-        return self.alpha, self.beta, self.nu1, self.nu2
+        return dict(alpha=self.alpha, beta=self.beta, nu1=self.nu1,
+                    nu2=self.nu2)
 
     def _adam(self, learning_rate):
-        return torch.optim.Adam(self.net.parameters(), lr=learning_rate,
-                                betas=(0.9, 0.999), eps=1e-8)
+        """A fresh Adam (optax.adam's constants) on the parameters."""
+        return Adam({k: p.detach() for k, p in self.net.named_parameters()},
+                    AdamConfig(float(learning_rate)))
 
     def train(self, batch_size=1024, epochs=1, initial_epoch=0, verbose=0,
               learning_rate=1e-3, checkpoint_dir=None, checkpoint_every=0,
@@ -306,30 +419,29 @@ class SDNE:
         opt = self._adam(learning_rate)
         A, L = self.A, self.L
         consts = self._consts()
+        gen = None
         if mesh is not None:
             shards = shard_dense(A, L, mesh, V)
 
             def run_epochs(n):
-                return sharded_sdne_train(
+                return torch.stack(sharded_sdne_train(
                     self.net, opt, *shards, mesh=mesh, num_nodes=V,
                     alpha=self.alpha, beta=self.beta, nu1=self.nu1,
-                    nu2=self.nu2, n_epochs=n)
-            gen = None
+                    nu2=self.nu2, n_epochs=n))
         elif batch_size >= V:
             def run_epochs(n):
-                return [adam_step(opt, lambda: sdne_loss(
-                    self.net, A, L, *consts)) for _ in range(n)]
-            gen = None
+                return adam_chunk(opt, full_batch_objective, n,
+                                  {"A": A, "L": L}, **consts)
         else:
             gen = torch.Generator().manual_seed(self.seed + 2)
 
             def run_epochs(n):
-                losses = []
-                for _ in range(n):
-                    perm = torch.randperm(V, generator=gen).to(self.device)
-                    losses += minibatch_epoch(self.net, opt, A, L, perm,
-                                              batch_size, *consts)
-                return losses
+                # the chunk's permutations, drawn in the order of its epochs
+                idx = torch.cat([epoch_batches(torch.randperm(
+                    V, generator=gen), batch_size) for _ in range(n)])
+                return adam_chunk(opt, minibatch_objective, idx.shape[0],
+                                  {"A": A, "L": L,
+                                   "idx": idx.to(self.device)}, **consts)
         return self._trained(self._run_checkpointed(
             run_epochs, opt, epochs, checkpoint_dir, checkpoint_every, gen,
             mesh))
@@ -341,24 +453,22 @@ class SDNE:
         checkpoint_every: see `_run_checkpointed`. mesh: the rows sharded
         over the data axis (`parallel/sdne.py`)."""
         opt = self._adam(learning_rate)
-        consts = self._consts()
         if mesh is not None:
             self._on_mesh(mesh)
             inputs = pad_sparse_inputs(self.graph, mesh, self.device)
 
             def run_epochs(n):
-                return sharded_sdne_sparse_train(
+                return torch.stack(sharded_sdne_sparse_train(
                     self.net, opt, inputs, mesh=mesh,
                     num_nodes=self.graph.num_nodes, alpha=self.alpha,
                     beta=self.beta, nu1=self.nu1, nu2=self.nu2, n_epochs=n,
-                    row_chunk=row_chunk)
+                    row_chunk=row_chunk))
         else:
-            inputs = self.sparse_inputs()
+            inputs = sparse_buffers(self.sparse_inputs())
 
             def run_epochs(n):
-                return [adam_step(opt, lambda: sparse_sdne_loss(
-                    self.net, inputs, *consts, row_chunk))
-                    for _ in range(n)]
+                return adam_chunk(opt, sparse_objective, n, inputs,
+                                  row_chunk=row_chunk, **self._consts())
         return self._trained(self._run_checkpointed(
             run_epochs, opt, epochs, checkpoint_dir, checkpoint_every,
             mesh=mesh))
@@ -373,13 +483,13 @@ class SDNE:
     def _run_checkpointed(self, run_epochs, opt, epochs, checkpoint_dir,
                           checkpoint_every, gen=None, mesh=None):
         """Run `epochs` epochs by `run_epochs(n)` (which returns the steps'
-        losses) with checkpoint and resume, the JAX package's
+        losses, a tensor) with checkpoint and resume, the JAX package's
         `_run_checkpointed`: with `checkpoint_dir` and `checkpoint_every`,
-        the epochs run in chunks of `checkpoint_every`, and after each the
-        parameters, `opt.state_dict()`, the epoch count and, when given,
-        the permutation generator `gen`'s state are saved; a checkpoint
-        already in `checkpoint_dir` is restored first (into the fresh Adam
-        `opt`) and only the epochs it lacks run. The chunks draw from one
+        the epochs run in chunks of `checkpoint_every` (else in one chunk),
+        and after each the parameters, `opt.state_dict()`, the epoch count
+        and, when given, the permutation generator `gen`'s state are
+        saved; a checkpoint already in `checkpoint_dir` is restored first
+        (into the fresh Adam `opt`) and only the epochs it lacks run. The chunks draw from one
         stream in order, so a resumed train equals an uninterrupted one,
         with or without checkpoints, bit for bit (the JAX package keys its
         checkpointed minibatch chunks by their first epoch, so its
@@ -407,7 +517,7 @@ class SDNE:
         with f32_matmul():
             while e < epochs:
                 n = min(every or epochs - e, epochs - e)
-                losses += run_epochs(n)
+                losses.append(run_epochs(n))
                 e += n
                 if every:
                     save(checkpoint_dir, {
@@ -418,7 +528,7 @@ class SDNE:
         return losses
 
     def _trained(self, losses):
-        self.losses = torch.stack(losses) if losses else torch.zeros(
+        self.losses = torch.cat(losses) if losses else torch.zeros(
             0, device=self.device)
         self._embeddings = None
         return self
@@ -427,7 +537,7 @@ class SDNE:
         """The full-batch loss components on the current parameters."""
         with torch.no_grad(), f32_matmul():
             loss, (l2nd, l1st) = sdne_loss(self.net, self.A, self.L,
-                                           *self._consts())
+                                           **self._consts())
         return {"loss": float(loss), "l_2nd": float(l2nd),
                 "l_1st": float(l1st)}
 

@@ -12,7 +12,9 @@ The product sums each output row's entries in CSR order
 from run to run on the card. cuSPARSE's SpMM (`A @ X` for a CSR A) does
 not on the H100: two calls on the same inputs differ in the last bits
 (`benchmarks/spmm_bench.py`), which would break SDNE's run-to-run
-identity.
+identity. The product takes a CSR as a `torch.sparse_csr_tensor` or as
+its three dense tensors (`Csr`), the form in which a CUDA graph holds it
+in its buffers.
 
 The Laplacian term of SDNE is never built as a matrix:
 
@@ -29,8 +31,24 @@ set it to "highest" (no TF32), and TF32 would change their results.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+
+class Csr(NamedTuple):
+    """A CSR matrix as its three dense tensors."""
+    crow: torch.Tensor
+    col: torch.Tensor
+    values: torch.Tensor
+
+
+def csr_parts(A):
+    """A (a `torch.sparse_csr_tensor` or a `Csr`) as a `Csr`."""
+    if isinstance(A, Csr):
+        return A
+    return Csr(A.crow_indices(), A.col_indices(), A.values())
 
 
 def _sym(graph):
@@ -73,11 +91,14 @@ def csr_row_sums(A):
 
 
 def csr_rows_matmul(A, X):
-    """A @ X for a CSR A [V, V] and a dense X [V, D]: output row i sums
-    w_e * X[col_e] over row i's entries, in CSR order (0 for an empty
-    row)."""
-    return torch.segment_reduce(A.values()[:, None] * X[A.col_indices()],
-                                "sum", offsets=A.crow_indices(), axis=0)
+    """A @ X for a CSR A [V, V] (or its `Csr`) and a dense X [V, D]: output
+    row i sums w_e * X[col_e] over row i's entries, in CSR order (0 for an
+    empty row). The offsets are taken as they are (`unsafe`): a CSR is
+    built and checked once, on the host (`csr_from_edges`), and a CUDA
+    graph's capture refuses a check that reads back to the host."""
+    crow, col, values = csr_parts(A)
+    return torch.segment_reduce(values[:, None] * X[col], "sum",
+                                offsets=crow, axis=0, unsafe=True)
 
 
 class _SpMM(torch.autograd.Function):

@@ -83,20 +83,20 @@ def local_rows(mesh, num_nodes):
 
 
 def mesh_adam_step(net, opt, loss_fn, mesh):
-    """One Adam step on the data-axis sum of loss_fn()'s local loss: the
-    gradients all_reduced in one flat buffer. Returns the summed loss."""
+    """One Adam step (`opt`, a `train.adam.Adam` on net's parameters) on
+    the data-axis sum of loss_fn()'s local loss: the gradients all_reduced
+    in one flat buffer. Launched step by step (an exchange through gloo
+    cannot be captured into a CUDA graph). Returns the summed loss."""
     group = mesh.get_group("data")
-    opt.zero_grad(set_to_none=False)
     loss_l = loss_fn()
-    loss_l.backward()
-    params = list(net.parameters())
-    flat = comm.all_reduce(torch.cat([p.grad.reshape(-1) for p in params]),
-                           group)
-    off = 0
-    for p in params:
-        p.grad.copy_(flat[off:off + p.numel()].view_as(p))
+    names, params = zip(*net.named_parameters())
+    grads = torch.autograd.grad(loss_l, params)
+    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    summed, off = {}, 0
+    for k, p in zip(names, params):
+        summed[k] = flat[off:off + p.numel()].view_as(p)
         off += p.numel()
-    opt.step()
+    opt.step(summed)
     return comm.all_reduce(loss_l.detach(), group)
 
 

@@ -1,7 +1,9 @@
 """A chunk of training steps as one CUDA graph: the port's counterpart of
 the JAX package's one compiled `lax.scan` a chunk (SGNS at
 `graphembedding_tpu/train/skipgram.py:606` and `:633`, hierarchical
-softmax at `train/hsoftmax.py:249`, LINE at `models/line.py:96`).
+softmax at `train/hsoftmax.py:249`, LINE at `models/line.py:96`, SDNE at
+`models/sdne.py:283`, `:337` and `:494`, the dense expected-SGNS fit at
+`train/dense.py:183`).
 
 A step of the single-device trainers is a few dozen small launches (K1-K4
 and PyTorch's elementwise ops), and on an H100 the host's time to issue
@@ -21,6 +23,10 @@ What a graph reads and writes lives in buffers it owns:
   tensor, constant masks): copied in before each replay;
 - the steps' outputs (losses, pairs): the graph's own tensors, which the
   next replay overwrites, so `run_chunk` returns clones.
+A step may differentiate (SDNE's): it takes its gradients by
+`torch.autograd.grad` on leaves that alias its buffers, so the gradients
+are tensors of the graph's pool, and the warm-up runs its forward and
+backward on the capture stream before the capture.
 Nothing inside a step may draw from a `torch.Generator`: the draws are
 inputs, made before the chunk. PyTorch refuses a draw from any generator
 but the card's default one during a capture; a draw from the default one
@@ -205,7 +211,8 @@ class ChunkGraph:
 _GRAPHS: dict = {}
 
 
-def run_chunk(step, n_steps, tables, inputs, *, ops, plain, consts=None):
+def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
+              consts=None):
     """n_steps training steps `step(bufs, s, ops, **consts)` on `tables`
     (name -> tensor, updated in place) and `inputs` (name -> tensor, read
     only); `bufs` maps every name to its tensor. Each step returns a tuple
@@ -218,11 +225,14 @@ def run_chunk(step, n_steps, tables, inputs, *, ops, plain, consts=None):
     On the CPU, or with ops `plain` (the plain versions make host round
     trips, which a capture refuses), the steps are launched one by one on
     the caller's tensors: the loop, the plain version of the graph.
+    ops None is a step that launches no kernel of the port (SDNE's, the
+    dense trainer's): it captures on a card, and warms up through the
+    same step.
     """
     consts = consts or {}
     bufs = {**tables, **inputs}
     device = next(iter(tables.values())).device
-    if ops is plain or device.type not in CAPTURES:
+    if (ops is not None and ops is plain) or device.type not in CAPTURES:
         return run_steps(step, n_steps, bufs, ops, consts)
     key = (str(device), step, n_steps, ops, tuple(sorted(consts.items())),
            tuple((name, tuple(t.shape), t.dtype)

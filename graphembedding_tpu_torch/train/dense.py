@@ -14,6 +14,7 @@ occ[c] = sum_x C[c,x], and q the unigram^0.75 negative distribution.
 Frequent-node subsampling is not folded into C, as in the JAX package.
 Each step is three [V, V] x [V, D] products (cuBLAS on the card), all in
 full float32 (matmul precision "highest"); TF32 would change the results.
+A fit's steps run as one CUDA graph on the card (`dense_fit`).
 
 The co-occurrence counts each distance's pairs as integers and sums
 w_d * N_d in a fixed order of d, so C is the same from run to run on the
@@ -31,6 +32,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from graphembedding_tpu_torch.train.adam import (
+    AdamConfig,
+    adam_update,
+    bias_corrections,
+)
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 from graphembedding_tpu_torch.utils.precision import f32_matmul
 
 # the co-occurrence's flat index a * V + b overflows int32 in the JAX
@@ -109,6 +116,25 @@ class DenseSGNSTrainer:
                          cfg.b1, cfg.b2, cfg.eps, steps=cfg.steps)
 
 
+def dense_step(b, s, ops, *, tied, adam):
+    """Step s of a dense fit on its buffers (`chunk_graph.run_chunk`): the
+    closed-form gradient of the normalized expected-SGNS loss, then Adam
+    on U (and W) in place."""
+    del ops  # no kernel of the port
+    U, W = b["U"], b["W"]
+    logits = U @ (U.T if tied else W.T)
+    S = torch.sigmoid(logits)
+    G = (b["C"] * (S - 1.0) + b["occ_n"] * b["q_row"] * S) * b["scale"]
+    if tied:
+        tables, grads = "U", [(G + G.T) @ U]
+    else:
+        tables, grads = "UW", [G @ W, G.T @ U]
+    adam_update([b[t] for t in tables], grads,
+                [b[f"m{t}"] for t in tables], [b[f"v{t}"] for t in tables],
+                b["bc1"][s], b["bc2"][s], adam)
+    return ()
+
+
 def dense_fit(C, U0, negative, ns_exponent, lr, b1, b2, eps, *, steps,
               q=None, tied=False):
     """Adam on the closed-form expected-SGNS gradient, from U0 and W0 = 0.
@@ -118,11 +144,15 @@ def dense_fit(C, U0, negative, ns_exponent, lr, b1, b2, eps, *, steps,
     [V]): the negative distribution; defaults to the corpus
     unigram^ns_exponent. `tied=True` trains one shared table (LINE
     first-order's symmetric dot): the gradient becomes (G + G^T) @ U and W
-    stays 0. Adam is written out with the JAX package's float32 constants.
-    Returns (U, W, loss [1]), the loss evaluated once, after the last step.
+    stays 0. Adam is `train/adam.py`'s, in optax's order of operations.
+    The steps run as the JAX package's one scan: on a card one CUDA graph
+    (`chunk_graph.run_chunk`) whose inputs are C, the rank-1 factors of
+    the negative term, the normalization and the bias corrections; on the
+    CPU the loop. Returns (U, W, loss [1]), the loss evaluated once, after
+    the last step.
     """
     f32 = np.float32
-    negative, lr, b1, b2, eps = (f32(x) for x in (negative, lr, b1, b2, eps))
+    adam = AdamConfig(*(float(f32(x)) for x in (lr, b1, b2, eps)))
     with f32_matmul():
         occ = C.sum(1)  # expected pair count per center
         if q is None:
@@ -131,32 +161,22 @@ def dense_fit(C, U0, negative, ns_exponent, lr, b1, b2, eps, *, steps,
         q = q / q.sum().clamp(min=1e-12)
         # the rank-1 factors of the negative term, never a [V, V] matrix
         # held across the steps
-        occ_n = (float(negative) * occ)[:, None]
+        occ_n = (float(f32(negative)) * occ)[:, None]
         q_row = q[None, :]
         scale = 1.0 / C.sum().clamp(min=1.0)  # per-pair normalization
 
         U = U0.clone()
         W = torch.zeros_like(U0)
-        state = [torch.zeros_like(U0) for _ in range(4)]  # mU, vU, mW, vW
-
-        def adam(p, g, m, v, t):
-            m = float(b1) * m + float(f32(1) - b1) * g
-            v = float(b2) * v + float(f32(1) - b2) * g * g
-            mhat = m / float(f32(1) - b1 ** f32(t))
-            vhat = v / float(f32(1) - b2 ** f32(t))
-            return p - float(lr) * mhat / (vhat.sqrt() + float(eps)), m, v
-
-        for t in range(1, steps + 1):
-            logits = U @ (U.T if tied else W.T)
-            S = torch.sigmoid(logits)
-            G = (C * (S - 1.0) + occ_n * q_row * S) * scale
-            if tied:
-                U, state[0], state[1] = adam(U, (G + G.T) @ U, state[0],
-                                             state[1], t)
-            else:
-                dU, dW = G @ W, G.T @ U
-                U, state[0], state[1] = adam(U, dU, state[0], state[1], t)
-                W, state[2], state[3] = adam(W, dW, state[2], state[3], t)
+        tables = {"U": U, "mU": torch.zeros_like(U0),
+                  "vU": torch.zeros_like(U0)}
+        if not tied:
+            tables.update(W=W, mW=torch.zeros_like(U0),
+                          vW=torch.zeros_like(U0))
+        bc1, bc2 = bias_corrections(adam.b1, adam.b2, 0, steps, U0.device)
+        inputs = {"C": C, "occ_n": occ_n, "q_row": q_row, "scale": scale,
+                  "bc1": bc1, "bc2": bc2, **({"W": W} if tied else {})}
+        run_chunk(dense_step, steps, tables, inputs,
+                  consts=dict(tied=tied, adam=adam))
         # the loss as one final evaluation, not one a step
         logits = U @ (U.T if tied else W.T)
         loss = -((C * F.logsigmoid(logits)).sum()

@@ -70,18 +70,28 @@ def load_state(path: str, name: str = STATE_FILE) -> Any:
                       weights_only=True)
 
 
+def _has_key(state, key):
+    """Whether `state` holds `key`; "a/b" is key b of the dict state["a"]."""
+    for part in key.split("/"):
+        if not isinstance(state, dict) or part not in state:
+            return False
+        state = state[part]
+    return True
+
+
 def try_restore(path: str, expected_keys,
                 name: str = STATE_FILE) -> Optional[Any]:
     """The checkpoint in `path`, or None when there is none.
 
     Raises ValueError when a checkpoint exists but lacks `expected_keys`
-    (one written by another trainer or mode): a silent restart from step 0
-    would retrain everything and then overwrite the old state.
+    ("a/b": key b of the dict under key a), as one written by another
+    trainer, mode or version does: a silent restart from step 0 would
+    retrain everything and then overwrite the old state.
     """
     if not os.path.exists(os.path.join(path, name)):
         return None
     state = load_state(path, name)
-    missing = [k for k in expected_keys if k not in state]
+    missing = [k for k in expected_keys if not _has_key(state, k)]
     if missing:
         raise ValueError(
             f"checkpoint at {path!r} lacks keys {missing} (has "

@@ -17,7 +17,8 @@ one seed; a resumed train is bit-identical to an uninterrupted one, and
 `most_similar` on the card gives the numpy path's names (apart from ties)
 and scores within 1e-5. SDNE's three trainers and the dense expected-SGNS
 fit run no kernel of the port's; their steps on the card are bit-identical from run
-to run and agree with the same steps on the CPU: losses rtol=1e-5, and
+to run, torch.equal through the chunk graphs and launched one by one, and
+agree with the same steps on the CPU: losses rtol=1e-5, and
 each parameter's update (value minus the shared initial value) within
 1e-3 of the CPU's in L2 norm. Adam's step is about lr * grad / (|grad| +
 eps), so an element whose gradient is near zero turns the last-bit
@@ -965,6 +966,75 @@ def test_chunk_graph_equals_the_loop_on_card(cuda, kind, monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(out, loop))
     assert all(bool(torch.isfinite(t).all()) for t in loop)
     assert any(t.dim() == 1 and bool((t > 0).all()) for t in loop)  # losses
+
+
+def sdne_chunks(cuda, mode):
+    """SDNE [256, 128] on Wiki: 4 epochs (the minibatch loop: 2 epochs of
+    3 steps), in two chunks of a checkpoint each."""
+    import tempfile
+
+    g = load_dataset("wiki").graph
+    train = {"sdne full": lambda m, **k: m.train(batch_size=3000, epochs=4,
+                                                 **k),
+             "sdne minibatch": lambda m, **k: m.train(batch_size=1024,
+                                                      epochs=2, **k),
+             "sdne sparse": lambda m, **k: m.train_sparse(
+                 epochs=4, row_chunk=512, **k)}[mode]
+
+    def run():
+        m = SDNE(g, hidden_size=[256, 128], device=cuda)
+        with tempfile.TemporaryDirectory() as d:
+            train(m, checkpoint_dir=d, checkpoint_every=2 if mode !=
+                  "sdne minibatch" else 1)
+        return [p.detach().clone() for p in m.net.parameters()] + [m.losses]
+    return run
+
+
+def dense_chunks(cuda, tied):
+    """dense_fit on a Wiki-sized corpus' co-occurrence: 8 steps."""
+    V = 2405
+    gen = torch.Generator().manual_seed(9)
+    walks = torch.randint(0, V, (19240, 10), generator=gen,
+                          dtype=torch.int32)
+    C = dense.cooccurrence(walks.to(cuda), V, 5)
+    U0 = dense.initial_table(V, 128, 4, cuda)
+
+    def run():
+        return list(dense.dense_fit(C, U0, 5, 0.75, 0.1, 0.9, 0.99, 1e-8,
+                                    steps=8, tied=tied))
+    return run
+
+
+@pytest.mark.parametrize("kind", ["sdne full", "sdne minibatch",
+                                  "sdne sparse", "dense", "dense tied"])
+def test_sdne_and_dense_chunk_graph_equals_the_loop_on_card(cuda, kind,
+                                                            monkeypatch):
+    """SDNE's three trainers (each in two chunks) and dense_fit (one chunk
+    of all its steps) through the captured CUDA graphs torch.equal to the
+    same steps launched one by one (the card taken out of
+    `chunk_graph.CAPTURES`), on a capture and on replays alone; no kernel
+    of the port launched."""
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    run = (sdne_chunks(cuda, kind) if kind.startswith("sdne")
+           else dense_chunks(cuda, kind == "dense tied"))
+    chunk_graph.release()
+    counts = [k.launches for k in chunk_graph.COUNTERS]
+    got = {}
+    for graphs in (False, True, True):  # the loop; a capture; replays only
+        with monkeypatch.context() as m:
+            if not graphs:
+                m.delitem(chunk_graph.CAPTURES, "cuda")
+            out = run()
+            torch.cuda.synchronize()
+        got.setdefault(graphs, []).append(out)
+    assert len(chunk_graph.held(cuda)) == 1
+    assert [k.launches for k in chunk_graph.COUNTERS] == counts
+    loop, = got[False]
+    for out in got[True]:
+        assert all(torch.equal(a, b) for a, b in zip(out, loop))
+    assert all(bool(torch.isfinite(t).all()) for t in loop)
+    chunk_graph.release()
 
 
 def drawing_step(b, s, ops, *, gen):

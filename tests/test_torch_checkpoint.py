@@ -326,6 +326,20 @@ def test_sdne_resume_bit_identical(tmp_path, mode, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(params(m), params(plain)))
 
 
+def test_sdne_refuses_a_checkpoint_of_torch_optim_adam(tmp_path):
+    """A checkpoint whose opt_state is torch.optim.Adam's (what SDNE saved
+    before its Adam was written out) is refused, not read wrongly."""
+    g = small_graph()
+    m = SDNE(g, hidden_size=[16, 8], device="cpu")
+    opt = torch.optim.Adam(m.net.parameters(), lr=1e-3)
+    ck.save_state(str(tmp_path), {"params": m.net.state_dict(),
+                                  "opt_state": opt.state_dict(),
+                                  "epoch": 3})
+    with pytest.raises(ValueError, match="opt_state/count"):
+        m.train(batch_size=500, epochs=9, checkpoint_dir=str(tmp_path),
+                checkpoint_every=3)
+
+
 def test_model_entry_points_pass_checkpoints_through(tmp_path):
     """DeepWalk and Node2Vec (SGNS and hs=1) checkpoint through train(),
     and a second train from the same directory resumes past the end."""

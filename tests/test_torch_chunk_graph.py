@@ -10,8 +10,12 @@ are held on the CPU against the step loop as it was before the graphs
 (`*_loop` below: the walk blocks sliced from the corpus, the learning rate
 a Python float), bit for bit: over several chunks, one of them wrapping
 around the corpus' blocks; through a fit cut and resumed from a
-checkpoint; and through two fits that share cached graphs. The capture on
-the card itself is held against the loop in `tests/test_torch_card.py`.
+checkpoint; and through two fits that share cached graphs. SDNE's three
+trainers and `dense_fit` (tied and untied), whose steps take their
+gradients by autograd or in closed form and run Adam on the graph's
+buffers, are held the same way against a plain loop of steps on the
+module and its `Adam` (`sdne_loop`, `dense_loop`). The capture on the
+card itself is held against the loop in `tests/test_torch_card.py`.
 """
 
 import numpy as np
@@ -467,3 +471,220 @@ def test_failed_capture_raises_and_leaves_nothing_behind(graphs):
     assert torch.equal(table, torch.zeros(3))  # no loop ran on it
     assert gather_rows.launches == before
     assert not cg.held()
+
+
+# ---- SDNE and the dense trainer: Adam steps as one graph ---------------
+
+def sdne_graph():
+    from graphembedding_tpu_torch.data import datasets as tds
+
+    return tds.synthetic_wiki(num_nodes=50, num_classes=3, avg_degree=4,
+                              seed=3).graph
+
+
+SDNE_MODES = {  # (train, steps an epoch)
+    "full": (lambda m, **k: m.train(batch_size=100, epochs=7, **k), 1),
+    "minibatch": (lambda m, **k: m.train(batch_size=16, epochs=7, **k), 4),
+    "sparse": (lambda m, **k: m.train_sparse(epochs=7, row_chunk=20, **k),
+               1),
+}
+
+
+def sdne_loop(m, mode, epochs=7):
+    """The SDNE trainers as a plain loop of steps on the module: the loss
+    by the module, the gradients by `torch.autograd.grad`, then
+    `Adam.step`; the minibatch permutations drawn an epoch at a time, as
+    the trainer draws them. Returns the losses."""
+    from graphembedding_tpu_torch.models import sdne as tsdne
+
+    opt = m._adam(1e-3)
+    names, params = zip(*m.net.named_parameters())
+    consts = (m.alpha, m.beta, m.nu1, m.nu2)
+    gen = torch.Generator().manual_seed(m.seed + 2)
+    losses = []
+    with tsdne.f32_matmul():
+        for _ in range(epochs):
+            if mode == "minibatch":
+                batches = tsdne.epoch_batches(
+                    torch.randperm(m.graph.num_nodes, generator=gen), 16)
+            else:
+                batches = [None]
+            for idx in batches:
+                if mode == "full":
+                    loss, _ = tsdne.sdne_loss(m.net, m.A, m.L, *consts)
+                elif mode == "minibatch":
+                    loss, _ = tsdne.sdne_loss(m.net, m.A[idx],
+                                              m.L[idx][:, idx], *consts)
+                else:
+                    loss, _ = tsdne.sparse_sdne_loss(
+                        m.net, m.sparse_inputs(), *consts, row_chunk=20)
+                opt.step(dict(zip(names, torch.autograd.grad(loss,
+                                                             params))))
+                losses.append(loss.detach())
+    return torch.stack(losses)
+
+
+def sdne_params(m):
+    return [p.detach().clone() for p in m.net.parameters()]
+
+
+@pytest.mark.parametrize("path", ["loop", "graph"])
+@pytest.mark.parametrize("mode", list(SDNE_MODES))
+def test_sdne_chunks_equal_the_loop(graphs, tmp_path, path, mode):
+    """Each SDNE trainer, in chunks of 3 epochs (a checkpoint each: 3, 3
+    and 1 epochs) and in one chunk, launched one by one or through the
+    graph path's buffers, torch.equal to the plain loop of steps."""
+    from graphembedding_tpu_torch import SDNE
+
+    if path == "loop":
+        without_graphs()
+    g = sdne_graph()
+    train, per_epoch = SDNE_MODES[mode]
+    ref = SDNE(g, hidden_size=[12, 6], device="cpu")
+    want = sdne_loop(ref, mode)
+    for kw in ({"checkpoint_dir": str(tmp_path), "checkpoint_every": 3},
+               {}):
+        m = SDNE(g, hidden_size=[12, 6], device="cpu")
+        train(m, **kw)
+        assert m.losses.shape == (7 * per_epoch,)
+        assert torch.equal(m.losses, want)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(sdne_params(m), sdne_params(ref)))
+    # chunks of 3 and 1 epochs, then all 7 in one
+    assert len(graphs) == (3 if path == "graph" else 0)
+
+
+@pytest.mark.parametrize("mode", list(SDNE_MODES))
+def test_sdne_resumed_through_graphs_equals_uninterrupted(graphs, tmp_path,
+                                                          mode,
+                                                          monkeypatch):
+    """A train cut in its second chunk of 3 epochs and resumed from its
+    checkpoint in a fresh model (new parameter tensors, a new Adam)
+    replays the cached graphs into them, and ends where the uninterrupted
+    train ends; the resumed train's losses are the last 4 epochs'."""
+    from graphembedding_tpu_torch import SDNE
+    from graphembedding_tpu_torch.models import sdne as tsdne
+
+    g = sdne_graph()
+    train, per_epoch = SDNE_MODES[mode]
+    want = SDNE(g, hidden_size=[12, 6], device="cpu")
+    train(want, checkpoint_dir=str(tmp_path / "full"), checkpoint_every=3)
+    chunk, calls = tsdne.adam_chunk, []
+
+    def interrupted(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:
+            raise Interrupt
+        return chunk(*a, **k)
+
+    monkeypatch.setattr(tsdne, "adam_chunk", interrupted)
+    with pytest.raises(Interrupt):
+        train(SDNE(g, hidden_size=[12, 6], device="cpu"),
+              checkpoint_dir=str(tmp_path / "cut"), checkpoint_every=3)
+    monkeypatch.setattr(tsdne, "adam_chunk", chunk)
+    m = SDNE(g, hidden_size=[12, 6], device="cpu")
+    train(m, checkpoint_dir=str(tmp_path / "cut"), checkpoint_every=3)
+    assert len(graphs) == 2  # chunks of 3 epochs and of 1
+    assert torch.equal(m.losses, want.losses[3 * per_epoch:])
+    assert all(torch.equal(a, b)
+               for a, b in zip(sdne_params(m), sdne_params(want)))
+
+
+@pytest.mark.parametrize("mode", list(SDNE_MODES))
+def test_two_sdne_trains_through_the_cache_equal_fresh_trains(graphs, mode):
+    """Two trains (other seeds) through one cached graph equal the same
+    trains each with a graph captured afresh, and the loop's."""
+    from graphembedding_tpu_torch import SDNE
+
+    g = sdne_graph()
+    train, _ = SDNE_MODES[mode]
+
+    def run(seed):
+        m = SDNE(g, hidden_size=[12, 6], seed=seed, device="cpu")
+        train(m)
+        return sdne_params(m), m.losses
+
+    cached = [run(1), run(2)]
+    assert len(graphs) == 1 and len(cg.held("cpu")) == 1
+    fresh = []
+    for seed in (1, 2):
+        cg.release()
+        fresh.append(run(seed))
+    assert len(graphs) == 3
+    without_graphs()
+    loop = [run(1), run(2)]
+    for (pc, lc), (pf, lf), (pl, ll) in zip(cached, fresh, loop):
+        assert torch.equal(lc, lf) and torch.equal(lc, ll)
+        assert all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(pc, pf, pl))
+    assert not torch.equal(cached[0][1], cached[1][1])
+
+
+def dense_loop(C, U0, tied, steps=6):
+    """dense_fit as a plain loop of steps: the closed-form gradient, then
+    `adam_update` with each step's bias corrections. Returns (U, W)."""
+    from graphembedding_tpu_torch.train.adam import (
+        AdamConfig, adam_update, bias_corrections)
+
+    f32 = np.float32
+    adam = AdamConfig(*(float(f32(x)) for x in (0.1, 0.9, 0.99, 1e-8)))
+    occ = C.sum(1)
+    counts = C.sum(1) + C.sum(0)
+    q = counts.clamp(min=0.0).pow(0.75)
+    q = q / q.sum().clamp(min=1e-12)
+    occ_n, q_row = (5.0 * occ)[:, None], q[None, :]
+    scale = 1.0 / C.sum().clamp(min=1.0)
+    U, W = U0.clone(), torch.zeros_like(U0)
+    mU, vU, mW, vW = (torch.zeros_like(U0) for _ in range(4))
+    bc1, bc2 = bias_corrections(adam.b1, adam.b2, 0, steps, "cpu")
+    for t in range(steps):
+        S = torch.sigmoid(U @ (U.T if tied else W.T))
+        G = (C * (S - 1.0) + occ_n * q_row * S) * scale
+        if tied:
+            adam_update([U], [(G + G.T) @ U], [mU], [vU], bc1[t], bc2[t],
+                        adam)
+        else:
+            adam_update([U, W], [G @ W, G.T @ U], [mU, mW], [vU, vW],
+                        bc1[t], bc2[t], adam)
+    return U, W
+
+
+def dense_inputs(seed):
+    from graphembedding_tpu_torch.train import dense
+
+    return dense.cooccurrence(corpus(seed), V, 2), dense.initial_table(V, 8, seed,
+                                                                "cpu")
+
+
+@pytest.mark.parametrize("path", ["loop", "graph"])
+@pytest.mark.parametrize("tied", [False, True])
+def test_dense_fit_equals_the_loop(graphs, path, tied):
+    """dense_fit (one chunk of all its steps), launched one by one or
+    through the graph path's buffers, torch.equal to the plain loop of
+    steps; two fits (other corpora) through the cached graph equal the
+    same fits with a graph captured afresh."""
+    from graphembedding_tpu_torch.train import dense
+
+    if path == "loop":
+        without_graphs()
+
+    def fit(seed):
+        C, U0 = dense_inputs(seed)
+        U, W, loss = dense.dense_fit(C, U0, 5, 0.75, 0.1, 0.9, 0.99, 1e-8,
+                                     steps=6, tied=tied)
+        assert torch.equal(U0, dense_inputs(seed)[1])  # U0 not written
+        return U, W, loss
+
+    cached = [fit(11), fit(12)]
+    for (U, W, loss), seed in zip(cached, (11, 12)):
+        want_U, want_W = dense_loop(*dense_inputs(seed), tied)
+        assert torch.equal(U, want_U) and torch.equal(W, want_W)
+        assert bool(torch.isfinite(loss).all()) and not torch.equal(
+            U, dense_inputs(seed)[1])
+        assert not tied or not W.any()
+    assert len(graphs) == (path == "graph")
+    if path == "graph":
+        cg.release()
+        fresh = fit(12)
+        assert len(graphs) == 2
+        assert all(torch.equal(a, b) for a, b in zip(fresh, cached[1]))

@@ -174,6 +174,8 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.models.sdne, "
             "graphembedding_tpu_torch.ops.spmm, "
             "graphembedding_tpu_torch.train.dense, "
+            "graphembedding_tpu_torch.train.adam, "
+            "graphembedding_tpu_torch.train.chunk_graph, "
             "graphembedding_tpu_torch.parity.reference, "
             "graphembedding_tpu_torch.native, "
             "graphembedding_tpu_torch.ops.walk, "

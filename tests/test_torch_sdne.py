@@ -303,6 +303,41 @@ def test_evaluate_matches_jax():
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6)
 
 
+def test_adam_matches_optax():
+    """The written-out Adam (`train/adam.py`) against `optax.adam` on one
+    stream of ten gradients, at SDNE's constants and at the dense
+    trainer's (b2 = 0.99): rtol 1e-5, atol 1e-7. The bias corrections are
+    float32 powers that numpy and XLA may round an ulp apart, and
+    1 - 0.999^t magnifies that ulp up to 999 times at t = 1."""
+    import optax
+
+    from graphembedding_tpu_torch.train.adam import Adam, AdamConfig
+
+    rng = np.random.default_rng(12)
+    p0 = rng.standard_normal((6, 5)).astype(np.float32)
+    grads = [(rng.standard_normal((6, 5)) * 10.0 ** rng.integers(
+        -6, 1, (6, 5))).astype(np.float32) for _ in range(10)]
+    for lr, b2 in ((1e-3, 0.999), (0.1, 0.99)):
+        tx = optax.adam(lr, b2=b2)
+        jp = {"p": jnp.asarray(p0)}
+        state = tx.init(jp)
+        p = torch.tensor(p0)
+        opt = Adam({"p": p}, AdamConfig(lr, b2=b2))
+        for g in grads:
+            updates, state = tx.update({"p": jnp.asarray(g)}, state, jp)
+            jp = optax.apply_updates(jp, updates)
+            opt.step({"p": torch.tensor(g)})
+            np.testing.assert_allclose(p.numpy(), np.asarray(jp["p"]),
+                                       rtol=1e-5, atol=1e-7)
+        assert opt.count == 10 and int(state[0].count) == 10
+        np.testing.assert_allclose(opt.m["p"].numpy(),
+                                   np.asarray(state[0].mu["p"]), rtol=1e-5,
+                                   atol=1e-7)
+        np.testing.assert_allclose(opt.v["p"].numpy(),
+                                   np.asarray(state[0].nu["p"]), rtol=1e-5,
+                                   atol=1e-7)
+
+
 def test_five_full_batch_steps_match_jax():
     jm, tm = pair(**CONSTS)
     jm.train(batch_size=100, epochs=5)
