@@ -139,11 +139,19 @@ trains run each chunk of steps as one CUDA graph.
      `rowsharded_sgns_chunk` against `sgns_block_chunk_cat` for 4 steps on
      the DeepWalk-on-Wiki shapes (the corpus of phase 5, D = 128), tables,
      losses and pair counts equal (torch.equal), with K3 once, K1 once and
-     K2 twice a step; then DeepWalk on Wiki trained with mesh= in rowshard
-     mode (train s, trained pairs/s, launches = steps x the per-step
-     counts, micro-F1 >= its gate);
+     K2 twice a step; then each mesh trainer on Wiki with mesh=: DeepWalk
+     rowshard (prefetch off and on), dp and hs=1 (dp), LINE order 'second'
+     (batch 1024, 50 epochs) and SDNE [256, 128] full batch and
+     train_sparse (40 epochs), each through its chunk graphs (one CUDA
+     graph a chunk, the NCCL exchanges inside it) and through the step
+     loop, in turns: tables torch.equal, micro-F1 equal and >= its gate,
+     K1-K4 launches equal and = steps x the per-step counts; for each way
+     the capture s, cold and warm train s, device time and busy share of
+     one warm train (torch.profiler), peak allocated and reserved memory;
+     the rowshard train's s, trained pairs/s and launches;
  25. the mesh at world size 2 over gloo, both ranks on the card (two
-     spawned ranks; every exchange staged through host memory): the
+     spawned ranks; every exchange staged through host memory, so the
+     steps run one by one: a CUDA graph cannot capture the copies): the
      rowshard chunk, the dp chunk at mesh (2, 1) and (1, 2), the HS dp
      chunk, the LINE dp chunk and SDNE's full-batch and sparse mesh
      trainers, each on the card against the same chunk at world size 2 on
@@ -271,12 +279,14 @@ BC_MIN_MICRO_F1 = 0.95
 # virtual devices, seeds 0-2 (tools/reference_f1.py, mesh_*), less 0.04
 # and rounded down to 0.01, as the gates above keep 0.03-0.05 below theirs:
 # rowshard 0.9543-0.9688, dp 0.9397-0.9459, hs=1 0.9647-0.9709, LINE
-# 0.7464-0.7568, SDNE full batch 0.7547-0.7817
+# 0.7464-0.7568, SDNE full batch 0.7547-0.7817, rowshard with prefetch
+# (rowshard_prefetch=True: one step of row staleness) 0.7588-0.8295
 # The models built with mesh= (phases 27-28, mesh_walks_*, the same rule):
 # DeepWalk rowshard 0.9501-0.9605, dp 0.9480-0.9563, a2a (dp) 0.9397-0.9626,
 # Node2Vec (p = 0.25, q = 4, dp) 0.9335-0.9563, Struc2Vec on flight-brazil
 # (hs=1) 0.8519-0.9259
-MESH_MIN_MICRO_F1 = {"rowshard": 0.91, "dp": 0.89, "hs": 0.92, "line": 0.70,
+MESH_MIN_MICRO_F1 = {"rowshard": 0.91, "rowshard_prefetch": 0.71,
+                     "dp": 0.89, "hs": 0.92, "line": 0.70,
                      "sdne": 0.71, "walks_rowshard": 0.91, "walks_dp": 0.90,
                      "walks_a2a": 0.89, "walks_node2vec": 0.89,
                      "walks_struc2vec": 0.81}
@@ -1884,6 +1894,80 @@ def step_loop():
         chunk_graph.CAPTURES["cuda"] = cuda
 
 
+def graphs_against_loop(what, ds, build, train, tables_of, gate, want,
+                        dev):
+    """`train(build())` through the chunk graphs and through the step loop
+    (`step_loop`), in turns in this process, each from an empty graph
+    cache: tables torch.equal, micro-F1 equal and >= gate, K1-K4 launches
+    equal and `want(steps)` (none of K1-K5 where that is all zeros). For
+    each way its capture s, cold and warm train s (the faster of two), the
+    device time and busy share of one warm train (torch.profiler), and
+    peak allocated and reserved memory. Returns (result lines, the graph
+    way's cold s, micro-F1, steps and launches)."""
+    import torch
+
+    from graphembedding_tpu_torch.benchmarks.train_profile import (
+        breakdown, device_events as profile_events)
+    from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    lines, ways = [], {}
+    for way in ("loop", "graph"):
+        chunk_graph.release()
+        with step_loop() if way == "loop" else contextlib.nullcontext():
+            model = build()
+            kernel_free = not any(want(1).values())
+            (_, cold), launches = counted(
+                lambda: no_kernel_launched(what, lambda: timed_walks(
+                    lambda: train(model))) if kernel_free
+                else timed_walks(lambda: train(model)))
+            tables = [t.detach().clone() for t in tables_of(model)]
+            steps = model.losses.shape[0]
+            finite = bool(torch.isfinite(model.losses).all()) and all(
+                bool(torch.isfinite(t).all()) for t in tables)
+            f1 = Classifier(model.get_embeddings()).split_train_evaluate(
+                ds.X, ds.Y, 0.8, seed=0)["micro"]
+            graphs = chunk_graph.held(dev)
+            torch.cuda.reset_peak_memory_stats()
+            warm = min(timed_walks(lambda: train(model))[1]
+                       for _ in range(2))
+            peak = torch.cuda.max_memory_allocated()
+            reserved = torch.cuda.memory_reserved()
+            prof = breakdown(profile_events(lambda: train(model)), 3)
+        ways[way] = (tables, f1, launches, cold, steps)
+        capture = (f"capture {sum(g.seconds for g in graphs):.4f} s "
+                   f"({len(graphs)} graphs)" if graphs else "no capture")
+        lines.append(
+            f"{what}, {way}: {capture}; train cold {cold:.4f} s, warm "
+            f"{warm:.4f} s; one warm train under torch.profiler: device "
+            f"{prof['device_ms']:.2f} ms, busy {prof['busy_ms']:.2f} ms in "
+            f"{prof['device_events']} device events, busy share "
+            f"{prof['busy_ms'] / 1e3 / warm:.4f}; peak allocated "
+            f"{peak / 2**20:.1f} MiB, reserved {reserved / 2**20:.1f} MiB "
+            f"with the graph pools held; micro-F1 {f1:.4f}; {steps} "
+            f"losses, launches {launches}")
+        if not finite:
+            fail(f"{what}, {way}: non-finite tables or losses")
+        if launches != want(steps):
+            fail(f"{what}, {way}: launches {launches}, want {want(steps)} "
+                 f"({steps} steps)")
+        if way == "graph" and not graphs:
+            fail(f"{what}: no chunk graph captured")
+    (t_loop, f_loop, n_loop, *_), (t_graph, f_graph, n_graph, cold, steps) \
+        = ways["loop"], ways["graph"]
+    if not all(torch.equal(a, b) for a, b in zip(t_loop, t_graph)):
+        fail(f"{what}: the graphs' tables differ from the loop's")
+    if f_loop != f_graph or not f_graph >= gate:
+        fail(f"{what}: micro-F1 {f_graph} (graphs) against {f_loop} "
+             f"(loop), gate {gate}")
+    if n_loop != n_graph:
+        fail(f"{what}: launches {n_graph} (graphs), {n_loop} (loop)")
+    lines.append(f"{what}: graphs against loop: tables torch.equal, "
+                 f"micro-F1 {f_graph:.4f} both (gate {gate}), launches "
+                 f"equal")
+    return lines, (cold, f_graph, steps, n_graph)
+
+
 def chunk_graph_phase(dev, card, blogcatalog):
     """Phase 29: each single-device trainer's path as a CUDA graph a chunk
     and as the step loop, in turns in this run: tables torch.equal,
@@ -1896,10 +1980,7 @@ def chunk_graph_phase(dev, card, blogcatalog):
     import torch
 
     from graphembedding_tpu_torch import LINE, SDNE, DeepWalk, Struc2Vec
-    from graphembedding_tpu_torch.benchmarks.train_profile import (
-        breakdown, device_events as profile_events)
     from graphembedding_tpu_torch.data import load_dataset
-    from graphembedding_tpu_torch.eval.classify import Classifier
     from graphembedding_tpu_torch.examples import line_blogcatalog
     from graphembedding_tpu_torch.train import chunk_graph
 
@@ -1953,52 +2034,13 @@ def chunk_graph_phase(dev, card, blogcatalog):
          lambda m: (m.second_emb, m.context_emb), DENSE_LINE_MIN_MICRO_F1,
          None),
     ]
+    zeros = dict.fromkeys(kernel_counts(), 0)
     for name, ds, build, train, tables_of, gate, want_n in paths:
-        ways = {}
-        for way in ("loop", "graph"):
-            chunk_graph.release()
-            with step_loop() if way == "loop" else contextlib.nullcontext():
-                model = build()
-                (_, cold), launches = counted(
-                    lambda: timed_walks(lambda: train(model)) if want_n
-                    else no_kernel_launched(name, lambda: timed_walks(
-                        lambda: train(model))))
-                tables = [t.detach().clone() for t in tables_of(model)]
-                res = Classifier(model.get_embeddings()).split_train_evaluate(
-                    ds.X, ds.Y, 0.8, seed=0)
-                graphs = chunk_graph.held(dev)
-                torch.cuda.reset_peak_memory_stats()
-                warm = min(timed_walks(lambda: train(model))[1]
-                           for _ in range(2))
-                peak = torch.cuda.max_memory_allocated()
-                reserved = torch.cuda.memory_reserved()
-                prof = breakdown(profile_events(lambda: train(model)), 3)
-            ways[way] = (tables, res["micro"], launches)
-            capture = (f"capture {sum(g.seconds for g in graphs):.4f} s "
-                       f"({len(graphs)} graphs)" if graphs else "no capture")
-            print(f"{name}, {way}: {capture}; train cold {cold:.4f} s, warm "
-                  f"{warm:.4f} s; one warm train under torch.profiler: "
-                  f"device {prof['device_ms']:.2f} ms, busy "
-                  f"{prof['busy_ms']:.2f} ms in {prof['device_events']} "
-                  f"device events, busy share "
-                  f"{prof['busy_ms'] / 1e3 / warm:.4f}; peak allocated "
-                  f"{peak / 2**20:.1f} MiB, reserved {reserved / 2**20:.1f} "
-                  f"MiB with the graph pools held; micro-F1 "
-                  f"{res['micro']:.4f}; launches {launches} [{card}]",
-                  flush=True)
-        (t_loop, f_loop, n_loop), (t_graph, f_graph, n_graph) = (
-            ways["loop"], ways["graph"])
-        if not all(torch.equal(a, b) for a, b in zip(t_loop, t_graph)):
-            fail(f"{name}: the graphs' tables differ from the loop's")
-        if f_loop != f_graph or not f_graph >= gate:
-            fail(f"{name}: micro-F1 {f_graph} (graphs) against {f_loop} "
-                 f"(loop), gate {gate}")
-        want_n = want_n or dict.fromkeys(kernel_counts(), 0)
-        if n_loop != n_graph or n_graph != want_n:
-            fail(f"{name}: launches {n_graph} (graphs), {n_loop} (loop), "
-                 f"want {want_n}")
-        print(f"{name}: graphs against loop: tables torch.equal, micro-F1 "
-              f"{f_graph:.4f} both, launches equal", flush=True)
+        lines, _ = graphs_against_loop(
+            name, ds, build, train, tables_of, gate,
+            lambda steps, want_n=want_n: want_n or zeros, dev)
+        for line in lines:
+            print(line, f"[{card}]", flush=True)
 
     model, res, train_s, launches = blogcatalog
     chunk_graph.release()
@@ -2115,6 +2157,58 @@ def wiki_draws(geo, S, V, K, seed, dev):
     return eff.to(dev), negs.to(dev)
 
 
+def mesh_ways(dev, ds, model, mesh):
+    """Phase 24's mesh trainers at world 1 over NCCL, each through its
+    chunk graphs and through the step loop (`graphs_against_loop`, the
+    launches the steps times the per-step counts). Returns (result lines,
+    the rowshard run through the graphs for `report_mesh_runs`)."""
+    from graphembedding_tpu_torch import LINE, SDNE
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    sgns_kw = dict(embed_size=128, window_size=5, iter=3, mesh=mesh)
+    walk_tables = lambda m: (m.w_in, m.w_out)  # noqa: E731
+    sdne_params = lambda m: list(m.net.parameters())  # noqa: E731
+    trainers = [
+        ("DeepWalk rowshard", "rowshard", lambda: model,
+         lambda m: m.train(**sgns_kw), walk_tables, SGNS_STEP),
+        ("DeepWalk rowshard prefetch", "rowshard_prefetch", lambda: model,
+         lambda m: m.train(rowshard_prefetch=True, **sgns_kw), walk_tables,
+         SGNS_STEP),
+        ("DeepWalk dp", "dp", lambda: model,
+         lambda m: m.train(parallel_mode="dp", **sgns_kw), walk_tables,
+         DP_STEP),
+        ("DeepWalk hs=1 dp", "hs", lambda: model,
+         lambda m: m.train(hs=1, **sgns_kw), walk_tables, HS_STEP),
+        ("LINE order 'second' dp", "line",
+         lambda: LINE(ds.graph, embedding_size=128, order="second",
+                      device=dev),
+         lambda m: m.train(batch_size=1024, epochs=50, mesh=mesh),
+         lambda m: (m.second_emb, m.context_emb), LINE_STEP),
+        ("SDNE full batch", "sdne",
+         lambda: SDNE(ds.graph, hidden_size=[256, 128], device=dev),
+         lambda m: m.train(batch_size=3000, epochs=40, mesh=mesh),
+         sdne_params, NO_KERNEL),
+        ("SDNE train_sparse", "sdne",
+         lambda: SDNE(ds.graph, hidden_size=[256, 128], device=dev),
+         lambda m: m.train_sparse(epochs=40, row_chunk=512, mesh=mesh),
+         sdne_params, NO_KERNEL),
+    ]
+    lines, rowshard_run = [], None
+    for name, gate, build, train, tables_of, per_step in trainers:
+        what = f"{name}, world 1 (NCCL)"
+        got, (cold, f1, steps, launches) = graphs_against_loop(
+            what, ds, build, train, tables_of, MESH_MIN_MICRO_F1[gate],
+            lambda steps, per_step=per_step: {
+                k: n * steps for k, n in per_step.items()}, dev)
+        lines += got
+        if rowshard_run is None:
+            rowshard_run = dict(what=what, gate=gate, f1=f1, train_s=cold,
+                                steps=steps, launches=launches,
+                                rate=model.trained_pairs / cold)
+    chunk_graph.release()
+    return lines, rowshard_run
+
+
 def mesh_world1_rank(info):
     """Phase 24, in a spawned NCCL rank of world size 1."""
     import torch
@@ -2153,15 +2247,12 @@ def mesh_world1_rank(info):
         fail(f"rowshard chunk at world 1: launches {launches} in {S} steps")
     moved = float((got[0] - w0).abs().max())
     chunk = (f"rowshard chunk, world 1 over NCCL: {S} steps at G={geo.G} "
-             f"PL={geo.PL} G2={geo.G2} K={K} D={D}, tables, losses and "
-             f"pairs torch.equal to sgns_block_chunk_cat (moved by "
-             f"{moved:.3e}); launches {launches} = a step K3 1, K1 1, K2 2")
-    run = mesh_train("DeepWalk rowshard, world 1 (NCCL)", "rowshard",
-                     lambda m: m.train(
-        embed_size=128, window_size=5, iter=3, mesh=mesh), model, ds,
-        SGNS_STEP)
-    run["rate"] = model.trained_pairs / run["train_s"]
-    return dict(chunk=chunk, runs=[run])
+             f"PL={geo.PL} G2={geo.G2} K={K} D={D}, through a chunk graph, "
+             f"tables, losses and pairs torch.equal to "
+             f"sgns_block_chunk_cat's (moved by {moved:.3e}); launches "
+             f"{launches} = a step K3 1, K1 1, K2 2")
+    lines, run = mesh_ways(dev, ds, model, mesh)
+    return dict(chunk=chunk, runs=[run], lines=lines)
 
 
 def card_and_cpu(fn, tensors, dev):
@@ -2356,6 +2447,13 @@ def mesh_world2_rank(info, tmp):
                  f"from {sorted(os.listdir(tmp))}: tables torch.equal to the "
                  f"uninterrupted fit; the resumed run {steps} steps, "
                  f"launches {launches}")
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    if chunk_graph.held():
+        fail(f"{len(chunk_graph.held())} chunk graphs captured over gloo, "
+             f"whose exchanges of CUDA tensors go through the host")
+    lines.append("over gloo every mesh chunk ran its steps one by one (no "
+                 "chunk graph captured: the backend rule)")
     return dict(lines=lines, runs=runs)
 
 
@@ -2391,8 +2489,10 @@ def mesh_phases(card):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     [w1] = run_ranks(mesh_world1_rank, 1, backend="nccl", device="cuda:0",
-                     threads=4, timeout_s=300)
+                     threads=4, timeout_s=600)
     print(w1["chunk"], f"[{card}]", flush=True)
+    for line in w1["lines"]:
+        print(line, f"[{card}]", flush=True)
     report_mesh_runs([w1["runs"]], card)
     print(f"phase 24: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()

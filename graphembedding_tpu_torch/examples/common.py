@@ -159,7 +159,9 @@ def run(name, dataset_default, build_and_train, parser=None, argv=None):
     if args.plot:
         plot_embeddings(emb, ds, args.plot)
     if args.mesh is not None:
-        import torch.distributed as dist
+        from graphembedding_tpu_torch.parallel.mesh import (
+            destroy_distributed,
+        )
 
-        dist.destroy_process_group()
+        destroy_distributed()
     return model, results, t_train

@@ -55,12 +55,12 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     import torch
-    import torch.distributed as dist
 
     from graphembedding_tpu_torch.data.datasets import synthetic_wiki
     from graphembedding_tpu_torch.eval.classify import Classifier
     from graphembedding_tpu_torch.models import DeepWalk
     from graphembedding_tpu_torch.parallel.mesh import (
+        destroy_distributed,
         init_distributed,
         make_mesh,
     )
@@ -105,7 +105,7 @@ def main(argv=None):
                    "walk_overflow": m.walk_overflow, "processes": world}
             print(json.dumps(out) if args.json else out, flush=True)
     finally:
-        dist.destroy_process_group()
+        destroy_distributed()
 
 
 if __name__ == "__main__":

@@ -32,7 +32,9 @@ autograd leaves aliasing those buffers, the gradients by
 `torch.autograd.grad`, the update in place. The inputs are the dense A and
 L, the minibatch loop's batches of a chunk (its permutations drawn before
 the chunk, in the order of its epochs) or the CSRs as their three dense
-tensors each, and the steps' bias corrections.
+tensors each, and the steps' bias corrections. Over a mesh the step also
+sums the gradients and the loss over the data axis (`parallel/sdne.py`):
+over NCCL inside the graph, over gloo with CUDA tensors step by step.
 
 Weights are Glorot-uniform with zero biases, drawn from a
 `torch.Generator(seed)` on the CPU and then moved, so the initial
@@ -68,6 +70,7 @@ from graphembedding_tpu_torch.ops.spmm import (
     laplacian_quadratic,
     spmm,
 )
+from graphembedding_tpu_torch.parallel import comm
 from graphembedding_tpu_torch.parallel.mesh import check_mesh, put_global
 from graphembedding_tpu_torch.parallel.sdne import (
     pad_sparse_inputs,
@@ -256,20 +259,36 @@ def minibatch_objective(net, b, s, *, alpha, beta, nu1, nu2):
 SPARSE_INPUTS = ("A", "At", "A_sym")  # the CSRs of `SDNE.sparse_inputs`
 
 
+def buffer_csrs(b, names=SPARSE_INPUTS):
+    """The CSRs `names` of a chunk's buffers (`sparse_buffers`)."""
+    return [Csr(*(b[f"{k}.{f}"] for f in Csr._fields)) for k in names]
+
+
 def sparse_objective(net, b, s, *, alpha, beta, nu1, nu2, row_chunk):
-    inputs = (*(Csr(*(b[f"{k}.{f}"] for f in Csr._fields))
-                for k in SPARSE_INPUTS), b["deg_w"], b["nbr"], b["nbr_w"])
+    inputs = (*buffer_csrs(b), b["deg_w"], b["nbr"], b["nbr_w"])
     return sparse_sdne_loss(net, inputs, alpha, beta, nu1, nu2,
                             row_chunk)[0]
 
 
-def sparse_buffers(inputs):
-    """`SDNE.sparse_inputs` as dense tensors by name: each CSR as its
-    three ("A.crow", "A.col", "A.values", ...)."""
-    A, At, A_sym, deg_w, nbr, nbr_w = inputs
-    return {**{f"{k}.{f}": t for k, csr in zip(SPARSE_INPUTS, (A, At, A_sym))
+def sparse_buffers(inputs, names=SPARSE_INPUTS):
+    """Sparse inputs (CSRs `names`, then deg_w, nbr and nbr_w; as
+    `SDNE.sparse_inputs` gives them) as dense tensors by name: each CSR as
+    its three ("A.crow", "A.col", "A.values", ...)."""
+    *csrs, deg_w, nbr, nbr_w = inputs
+    return {**{f"{k}.{f}": t for k, csr in zip(names, csrs)
                for f, t in zip(Csr._fields, csr_parts(csr))},
             "deg_w": deg_w, "nbr": nbr, "nbr_w": nbr_w}
+
+
+def summed_grads(grads, group):
+    """The gradients summed over `group` in one flat buffer, as views of
+    it shaped as the gradients."""
+    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return out
 
 
 def adam_step(b, s, ops, *, objective, names, adam, **kw):
@@ -277,29 +296,39 @@ def adam_step(b, s, ops, *, objective, names, adam, **kw):
     parameters "p/<name>" as autograd leaves, `objective(net, b, s, **kw)`
     and its gradients by `torch.autograd.grad`, then Adam on "p/", "m/"
     and "v/<name>" in place with the bias corrections b["bc1"][s] and
-    b["bc2"][s]. Returns (loss,)."""
+    b["bc2"][s]. A mesh objective's `group` (kw; the process group its
+    rows are split over) sums the gradients over it before Adam, and the
+    loss after. Returns (loss,)."""
     del ops  # no kernel of the port
+    group = kw.get("group")
     leaves = {k: b[f"p/{k}"].detach().requires_grad_() for k in names}
     with torch.enable_grad():
         loss = objective(LayerStacks(leaves), b, s, **kw)
         grads = torch.autograd.grad(loss, list(leaves.values()))
+    if group is not None:
+        grads = summed_grads(grads, group)
     ps, ms, vs = ([b[f"{kind}/{k}"] for k in names] for kind in "pmv")
     with torch.no_grad():
         adam_update(ps, list(grads), ms, vs, b["bc1"][s], b["bc2"][s], adam)
-    return (loss.detach(),)
+    loss = loss.detach()
+    return (loss if group is None else comm.all_reduce(loss, group),)
 
 
 def adam_chunk(opt, objective, n_steps, inputs, **kw):
     """n_steps Adam steps of `objective` (`adam_step`) on the parameters
     and state of `opt` (an `Adam`), with the tensors `inputs` (name ->
-    tensor); on a card one CUDA graph, on the CPU the loop. kw: the
-    objective's constants. Returns the losses [n_steps]."""
+    tensor); on a card one CUDA graph, on the CPU the loop, and the loop
+    too when kw's `group` (a mesh objective's) stages its exchanges
+    through the host. kw: the objective's constants. Returns the losses
+    [n_steps]."""
     bc1, bc2 = opt.bias_corrections(n_steps)
+    group = kw.get("group")
     losses, = run_chunk(
         adam_step, n_steps, opt.tables(), {**inputs, "bc1": bc1,
                                            "bc2": bc2},
         consts=dict(objective=objective, names=tuple(opt.params),
-                    adam=opt.cfg, **kw))
+                    adam=opt.cfg, **kw),
+        groups=() if group is None else (group,))
     opt.count += n_steps
     return losses
 
@@ -424,10 +453,9 @@ class SDNE:
             shards = shard_dense(A, L, mesh, V)
 
             def run_epochs(n):
-                return torch.stack(sharded_sdne_train(
-                    self.net, opt, *shards, mesh=mesh, num_nodes=V,
-                    alpha=self.alpha, beta=self.beta, nu1=self.nu1,
-                    nu2=self.nu2, n_epochs=n))
+                return sharded_sdne_train(
+                    opt, *shards, mesh=mesh, num_nodes=V, n_epochs=n,
+                    **consts)
         elif batch_size >= V:
             def run_epochs(n):
                 return adam_chunk(opt, full_batch_objective, n,
@@ -458,11 +486,9 @@ class SDNE:
             inputs = pad_sparse_inputs(self.graph, mesh, self.device)
 
             def run_epochs(n):
-                return torch.stack(sharded_sdne_sparse_train(
-                    self.net, opt, inputs, mesh=mesh,
-                    num_nodes=self.graph.num_nodes, alpha=self.alpha,
-                    beta=self.beta, nu1=self.nu1, nu2=self.nu2, n_epochs=n,
-                    row_chunk=row_chunk))
+                return sharded_sdne_sparse_train(
+                    opt, inputs, mesh=mesh, num_nodes=self.graph.num_nodes,
+                    n_epochs=n, row_chunk=row_chunk, **self._consts())
         else:
             inputs = sparse_buffers(self.sparse_inputs())
 

@@ -12,7 +12,9 @@ is gloo, a CUDA tensor is copied to the host, exchanged there and copied
 back, every time (gloo's all-to-all has no CUDA path). NCCL gets the
 tensors as they are. So two gloo ranks on one card exercise the same
 exchanges as NCCL ranks on cards of their own, with the kernels on the
-card, at the cost of the copies.
+card, at the cost of the copies. `host_staged` states the rule, so that a
+chunk of steps knows before it starts whether a CUDA graph can capture its
+exchanges (a capture refuses the copies to the host).
 """
 
 from __future__ import annotations
@@ -24,11 +26,17 @@ _all_gather_single = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 
 
+def host_staged(group, device) -> bool:
+    """Whether an exchange on `group` of a tensor on `device` goes through
+    host memory: gloo with a tensor off the CPU. NCCL, and gloo on CPU
+    tensors, exchange the tensors where they lie."""
+    return dist.get_backend(group) == "gloo" and \
+        torch.device(device).type != "cpu"
+
+
 def _staged(x, group):
     """x as the group's backend takes it: on the host for gloo."""
-    if dist.get_backend(group) == "gloo" and x.device.type != "cpu":
-        return x.cpu()
-    return x
+    return x.cpu() if host_staged(group, x.device) else x
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

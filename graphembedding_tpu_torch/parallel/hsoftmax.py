@@ -14,7 +14,9 @@ dp SGNS mode (`parallel/sgns.py`):
 A step is the single-device `train.hsoftmax.hs_step` (K3 gathers; K4, or K2
 above `ops.rows.SMALL_V_ROWS` rows, by `ops.rows.scatter_add_table`), with
 the model-axis sum as its `reduce`. The window draws `eff` differ by data
-rank: the JAX body folds their key by the data index.
+rank: the JAX body folds their key by the data index. A chunk's steps and
+syncs run through `train.chunk_graph.run_chunk` as the dp SGNS chunk's do
+(over NCCL one CUDA graph a chunk; `points` and `codes` constant inputs).
 """
 
 from __future__ import annotations
@@ -24,15 +26,31 @@ import functools
 import torch
 
 from graphembedding_tpu_torch.parallel import comm
+from graphembedding_tpu_torch.parallel.rowshard import offset_blocks
 from graphembedding_tpu_torch.parallel.sgns import (
     DEFAULT_SYNC_EVERY,
     dp_geometry,
     dp_offsets,
-    sync_replicas,
+    synced,
 )
-from graphembedding_tpu_torch.train.hsoftmax import KERNELS, hs_step
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
+from graphembedding_tpu_torch.train.hsoftmax import KERNELS, PLAIN, hs_step
 from graphembedding_tpu_torch.train.skipgram import step_lrs, window_geometry
 from graphembedding_tpu_torch.utils.precision import f32_matmul
+
+
+def _chunk_step(b, s, ops, *, data, model, update_cap, sync_every,
+                n_steps):
+    """Step s of a chunk on its buffers (`chunk_graph.run_chunk`), then
+    its replica syncs."""
+    reduce = (None if model is None else
+              functools.partial(comm.all_reduce, group=model))
+    return synced(b, s, ("w_in", "w_tree"), data, sync_every, n_steps,
+                  lambda: hs_step(
+                      b["w_in"], b["w_tree"], b["tokens"][s], b["eff"][s],
+                      b["points"], b["codes"], b["lrs"][s],
+                      window_ok=b["window_ok"], dm=b["dm"],
+                      update_cap=update_cap, ops=ops, reduce=reduce))
 
 
 def sharded_hs_chunk(w_in, w_tree, walks, points, codes, eff, alpha,
@@ -44,6 +62,11 @@ def sharded_hs_chunk(w_in, w_tree, walks, points, codes, eff, alpha,
     place); eff [S, G, PL] this data rank's window draws. Returns (w_in,
     w_tree, losses [S] averaged over the data ranks, pairs [S] summed over
     them).
+
+    Over NCCL the S steps through the kernels replay one captured CUDA
+    graph (`chunk_graph.run_chunk`); over gloo with CUDA tensors, on the
+    CPU, or through the plain versions (`ops=PLAIN`), they are launched
+    one by one.
     """
     data, model = mesh.get_group("data"), mesh.get_group("model")
     n, di = mesh.size("data"), mesh.get_local_rank("data")
@@ -52,27 +75,22 @@ def sharded_hs_chunk(w_in, w_tree, walks, points, codes, eff, alpha,
     S = eff.shape[0]
     if tuple(eff.shape) != (S, geo.G, geo.PL):
         raise ValueError(f"draws eff {tuple(eff.shape)} do not match {geo}")
-    sync_every = min(sync_every or DEFAULT_SYNC_EVERY, S)
-    reduce = (functools.partial(comm.all_reduce, group=model)
-              if mesh.size("model") > 1 else None)
     window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    lrs = step_lrs(t0, S, alpha, min_alpha, total_steps)
-    offs = dp_offsets(t0, S, geo, block_walks, n, di)
-    tables = [w_in, w_tree]
-    bases = [w_in.clone(), w_tree.clone()]
-    losses, pairs = [], []
+    lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha, total_steps),
+                          device=walks.device)
+    tokens = offset_blocks(
+        walks, dp_offsets(t0, S, geo, block_walks, n, di), geo)
+    inputs = dict(tokens=tokens, eff=eff, points=points, codes=codes,
+                  lrs=lrs, window_ok=window_ok, dm=dm)
+    tp = mesh.size("model") > 1
+    consts = dict(data=data, model=model if tp else None,
+                  update_cap=float(update_cap),
+                  sync_every=min(sync_every or DEFAULT_SYNC_EVERY, S),
+                  n_steps=S)
     with f32_matmul():
-        for s in range(S):
-            tok = walks[offs[s]: offs[s] + geo.Bw].reshape(geo.G, geo.PL)
-            loss, p = hs_step(w_in, w_tree, tok, eff[s], points, codes,
-                              float(lrs[s]), window_ok=window_ok, dm=dm,
-                              update_cap=float(update_cap), ops=ops,
-                              reduce=reduce)
-            losses.append(loss)
-            pairs.append(p)
-            if (s + 1) % sync_every == 0:
-                sync_replicas(tables, bases, data)
-    sync_replicas(tables, bases, data)  # so the replicas agree
-    stats = comm.all_reduce(torch.stack([torch.stack(losses),
-                                         torch.stack(pairs)]), data)
+        losses, pairs = run_chunk(
+            _chunk_step, S, {"w_in": w_in, "w_tree": w_tree}, inputs,
+            ops=ops, plain=PLAIN, consts=consts,
+            groups=(data, model) if tp else (data,))
+    stats = comm.all_reduce(torch.stack([losses, pairs]), data)
     return w_in, w_tree, stats[0] / n, stats[1]

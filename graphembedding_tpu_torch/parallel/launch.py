@@ -32,9 +32,10 @@ class RankInfo(NamedTuple):
 
 def _rank_main(fn, rank, world_size, backend, device, threads, store,
                out, args):
-    import torch.distributed as dist
-
-    from graphembedding_tpu_torch.parallel.mesh import init_distributed
+    from graphembedding_tpu_torch.parallel.mesh import (
+        destroy_distributed,
+        init_distributed,
+    )
 
     torch.set_num_threads(threads)
     device = torch.device(device)
@@ -47,7 +48,7 @@ def _rank_main(fn, rank, world_size, backend, device, threads, store,
             result = ("ok", fn(RankInfo(rank, world_size, device),
                                *args))
         finally:
-            dist.destroy_process_group()
+            destroy_distributed()
     except BaseException:  # noqa: B902 - reported to the parent
         result = ("error", traceback.format_exc())
     torch.save(result, out)

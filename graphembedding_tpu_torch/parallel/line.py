@@ -12,17 +12,17 @@ average divides each by the data-axis size.
 
 No model axis: LINE's tables are [V, D <= 256], so column slices buy
 nothing, and a mesh with model > 1 is refused.
+
+A chunk's steps and syncs run through `train.chunk_graph.run_chunk` on
+the chunk's draws (`lrs` a float32 tensor): over NCCL one CUDA graph a
+chunk, over gloo with CUDA tensors the steps one by one.
 """
 
 from __future__ import annotations
 
-import torch
-
 from graphembedding_tpu_torch.parallel import comm
-from graphembedding_tpu_torch.parallel.sgns import (
-    DEFAULT_SYNC_EVERY,
-    sync_replicas,
-)
+from graphembedding_tpu_torch.parallel.sgns import DEFAULT_SYNC_EVERY, synced
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 
 
 def local_batch(mesh, batch_size):
@@ -40,27 +40,43 @@ def local_batch(mesh, batch_size):
     return batch_size // n
 
 
+def _chunk_step(b, s, ops, *, data, negative, k_shared, update_cap,
+                sync_every, n_steps):
+    """Step s of a chunk on its buffers (`chunk_graph.run_chunk`), then
+    its replica syncs."""
+    from graphembedding_tpu_torch.models.line import line_step
+
+    return synced(
+        b, s, ("emb",) if "ctx" not in b else ("emb", "ctx"), data,
+        sync_every, n_steps, lambda: (line_step(
+            b["emb"], b.get("ctx"), b["hs"][s], b["tposs"][s],
+            b["tnegs"][s], b["lrs"][s], negative=negative,
+            k_shared=k_shared, update_cap=update_cap, ops=ops),))
+
+
 def sharded_line_chunk(emb, ctx, hs, tposs, tnegs, lrs, *, mesh, negative,
                        k_shared=0, update_cap=8.0, sync_every=None,
                        ops=None):
     """S = hs.shape[0] LINE steps on this rank's replicas, on its draws
     (`models.line.line_bulk_samples` at the local batch). emb, ctx as in
     `line_step` (ctx None for order 'first'), updated in place. Returns
-    (emb, ctx, losses [S] averaged over the data ranks)."""
-    from graphembedding_tpu_torch.models.line import KERNELS, line_step
+    (emb, ctx, losses [S] averaged over the data ranks).
+
+    Over NCCL the S steps through the kernels replay one captured CUDA
+    graph (`chunk_graph.run_chunk`); over gloo with CUDA tensors, on the
+    CPU, or through the plain versions, they are launched one by one."""
+    from graphembedding_tpu_torch.models.line import KERNELS, PLAIN
 
     local_batch(mesh, hs.shape[1] * mesh.size("data"))
     group, n = mesh.get_group("data"), mesh.size("data")
     S = hs.shape[0]
-    sync_every = min(sync_every or DEFAULT_SYNC_EVERY, S)
-    tables = [emb] if ctx is None else [emb, ctx]
-    bases = [t.clone() for t in tables]
-    losses = []
-    for s in range(S):
-        losses.append(line_step(emb, ctx, hs[s], tposs[s], tnegs[s], lrs[s],
-                                negative=negative, k_shared=k_shared,
-                                update_cap=update_cap, ops=ops or KERNELS))
-        if (s + 1) % sync_every == 0:
-            sync_replicas(tables, bases, group)
-    sync_replicas(tables, bases, group)  # so the replicas agree
-    return emb, ctx, comm.all_reduce(torch.stack(losses), group) / n
+    tables = {"emb": emb} if ctx is None else {"emb": emb, "ctx": ctx}
+    consts = dict(data=group, negative=negative, k_shared=k_shared,
+                  update_cap=update_cap,
+                  sync_every=min(sync_every or DEFAULT_SYNC_EVERY, S),
+                  n_steps=S)
+    losses, = run_chunk(_chunk_step, S, tables,
+                        dict(hs=hs, tposs=tposs, tnegs=tnegs, lrs=lrs),
+                        ops=ops or KERNELS, plain=PLAIN, consts=consts,
+                        groups=(group,))
+    return emb, ctx, comm.all_reduce(losses, group) / n

@@ -48,6 +48,18 @@ def init_distributed(rank: int, world_size: int, backend: str = "nccl",
         timeout=datetime.timedelta(seconds=timeout_s))
 
 
+def destroy_distributed() -> None:
+    """Leave the process group (`torch.distributed.destroy_process_group`)
+    after releasing the chunk graphs that exchange over any of its groups:
+    a captured NCCL collective holds its group's communicator, and a graph
+    must not outlive it (`train.chunk_graph`)."""
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    for group in {g for graph in chunk_graph.held() for g in graph.groups}:
+        chunk_graph.release(group=group)
+    dist.destroy_process_group()
+
+
 class Mesh:
     """A (data, model) grid of the ranks of the default process group,
     with one process group for each line of each axis."""

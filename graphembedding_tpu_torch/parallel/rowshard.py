@@ -32,6 +32,13 @@ A step, on each rank, for its own slice of the walk block:
 Launches a step: K3 once, K1 once, K2 twice. `prefetch=True` fetches step
 t+1's rows before step t's push lands (one step of row staleness; the JAX
 package's double-buffered halo, `SkipGramConfig.rowshard_prefetch`).
+
+A chunk's steps run through `train.chunk_graph.run_chunk` on buffers: the
+token blocks gathered into [S, G, PL], the draws, the learning rates as a
+float32 tensor and the table. Over NCCL a chunk replays one CUDA graph
+(the JAX package's one `jit(shard_map(... lax.scan ...))`), the
+exchanges inside it; over gloo with CUDA tensors the exchanges go through
+host memory, and the steps run one by one.
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ import numpy as np
 import torch
 
 from graphembedding_tpu_torch.parallel import comm
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 from graphembedding_tpu_torch.train.skipgram import (
     KERNELS,
+    PLAIN,
     block_geometry,
     capped_update,
     event_rows,
@@ -106,6 +115,60 @@ def block_offsets(t0, S, geo, n, di):
     return (steps % geo.n_blocks) * n * geo.Bw + di * geo.Bw
 
 
+def offset_blocks(walks, offs, geo):
+    """The token blocks walks[o : o + Bw] for o in offs, packed as
+    [len(offs), G, PL]; one gather."""
+    idx = torch.as_tensor(offs, device=walks.device)[:, None] + \
+        torch.arange(geo.Bw, device=walks.device)
+    return walks[idx].view(len(offs), geo.G, geo.PL)
+
+
+def _fetched(b, s, ops, group, lo, Vp):
+    """Step s's token block, its ids (tokens then negatives) as
+    `gather_ids` numbers them, and their rows from the owners."""
+    tok = b["tokens"][s]
+    ids = torch.cat([tok.reshape(-1), b["negs"][s].reshape(-1)])
+    local, owned = gather_ids(ids, lo, Vp, group)
+    rows = fetch_rows_with(b["w_local"], ids, local, owned, group,
+                           ops.gather)
+    return tok, local, owned, rows
+
+
+def _chunk_step(b, s, ops, *, group, lo, Vp, nsp, neg_w, update_cap,
+                prefetch, n_steps):
+    """Step s of a chunk on its buffers (`chunk_graph.run_chunk`): its
+    rows (under prefetch, those step s - 1 fetched before its push), under
+    prefetch step s + 1's rows, then the step. Returns the loss summed
+    over the block, the pairs clamped to 1, and the pairs."""
+    w_local = b["w_local"]
+    C = w_local.shape[1]
+    D = C // 2
+    tok, local, owned, rows = (b.pop("next") if prefetch and s else
+                               _fetched(b, s, ops, group, lo, Vp))
+    if prefetch and s + 1 < n_steps:  # before step s's push lands
+        b["next"] = _fetched(b, s + 1, ops, group, lo, Vp)
+    G, PL = tok.shape
+    negs = b["negs"][s]
+    G2, K = negs.shape
+    Tt = G * PL
+    _, mask, neg_ok = step_masks(tok, b["eff"][s], negs, b["window_ok"],
+                                 b["dm"], nsp)
+    y = rows[:Tt].view(G, PL, C)
+    vn = rows[Tt:, D:].view(G2, K, D)
+    d_yin, d_yout, d_vn, loss_g = ops.grads(
+        y[..., :D], y[..., D:], vn, mask, neg_ok, neg_w)
+    d_tok, d_neg = event_rows(d_yin, d_yout, d_vn, mask, neg_w)
+    tbuf = push_grads_with(Vp, local[:, :Tt], owned[:, :Tt], d_tok, group,
+                           ops.scatter_add)
+    if lo == 0:  # every rank's pads, as the JAX scatter's row 0
+        tbuf[0, C] += (local[:, :Tt] < 0).sum()
+    nbuf = push_grads_with(Vp, local[:, Tt:], owned[:, Tt:], d_neg, group,
+                           ops.scatter_add)
+    capped_update(w_local, tbuf, nbuf, b["lrs"][s], update_cap)
+    pairs = mask.sum()
+    return loss_g.sum(), pairs.clamp(min=1.0), pairs
+
+
 def rowsharded_sgns_chunk(w_local, walks, eff, negs, alpha, min_alpha, t0,
                           total_steps, *, mesh, block_walks, window,
                           negative, neg_share_packs=4, update_cap=8.0,
@@ -118,13 +181,16 @@ def rowsharded_sgns_chunk(w_local, walks, eff, negs, alpha, min_alpha, t0,
     both by rank). Returns (w_local, losses [S], pairs [S]): the loss
     summed over ranks over the pairs summed over ranks (each rank's at
     least 1), and the global pair counts.
+
+    Over NCCL the S steps through the kernels replay one captured CUDA
+    graph (`chunk_graph.run_chunk`); over gloo with CUDA tensors, on the
+    CPU, or through the plain versions (`ops=PLAIN`), they are launched
+    one by one.
     """
     group = mesh.get_group("data")
     n, di = mesh.size("data"), mesh.get_local_rank("data")
     NW, L = walks.shape
-    Vp, C = w_local.shape
-    D = C // 2
-    lo = di * Vp
+    Vp = w_local.shape[0]
     geo = rank_geometry(NW, L, block_walks, n, neg_share_packs)
     S, K = eff.shape[0], negs.shape[2]
     if tuple(eff.shape) != (S, geo.G, geo.PL) or tuple(negs.shape) != (
@@ -132,52 +198,18 @@ def rowsharded_sgns_chunk(w_local, walks, eff, negs, alpha, min_alpha, t0,
         raise ValueError(f"draws eff {tuple(eff.shape)} / negs "
                          f"{tuple(negs.shape)} do not match {geo}")
     window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    lrs = step_lrs(t0, S, alpha, min_alpha, total_steps)
-    offs = block_offsets(t0, S, geo, n, di)
-    neg_w = float(np.float32(negative) / np.float32(K))
-    Tt = geo.G * geo.PL
-
-    def ids_of(s):
-        tok = walks[offs[s]: offs[s] + geo.Bw].reshape(geo.G, geo.PL)
-        ids = torch.cat([tok.reshape(-1), negs[s].reshape(-1)])
-        return (tok, ids) + gather_ids(ids, lo, Vp, group)
-
-    def fetch(ex):
-        return fetch_rows_with(w_local, ex[1], ex[2], ex[3], group,
-                               ops.gather)
-
-    def step(ex, rows, s):
-        tok, _, local, owned = ex
-        _, mask, neg_ok = step_masks(tok, eff[s], negs[s], window_ok, dm,
-                                     geo.nsp)
-        y = rows[:Tt].view(geo.G, geo.PL, C)
-        vn = rows[Tt:, D:].view(geo.G2, K, D)
-        d_yin, d_yout, d_vn, loss_g = ops.grads(
-            y[..., :D], y[..., D:], vn, mask, neg_ok, neg_w)
-        d_tok, d_neg = event_rows(d_yin, d_yout, d_vn, mask, neg_w)
-        tbuf = push_grads_with(Vp, local[:, :Tt], owned[:, :Tt], d_tok,
-                               group, ops.scatter_add)
-        if lo == 0:  # every rank's pads, as the JAX scatter's row 0
-            tbuf[0, C] += (local[:, :Tt] < 0).sum()
-        nbuf = push_grads_with(Vp, local[:, Tt:], owned[:, Tt:], d_neg,
-                               group, ops.scatter_add)
-        capped_update(w_local, tbuf, nbuf, float(lrs[s]), float(update_cap))
-        pairs = mask.sum()
-        return torch.stack([loss_g.sum(), pairs.clamp(min=1.0), pairs])
-
-    stats = []
-    ex = ids_of(0)
-    rows = fetch(ex)
-    for s in range(S):
-        if prefetch and s + 1 < S:  # before step s's push lands
-            ex_n = ids_of(s + 1)
-            rows_n = fetch(ex_n)
-        stats.append(step(ex, rows, s))
-        if s + 1 < S:
-            if prefetch:
-                ex, rows = ex_n, rows_n
-            else:
-                ex = ids_of(s + 1)
-                rows = fetch(ex)
-    stats = comm.all_reduce(torch.stack(stats), group)
+    lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha, total_steps),
+                          device=walks.device)
+    tokens = offset_blocks(walks, block_offsets(t0, S, geo, n, di), geo)
+    inputs = dict(tokens=tokens, eff=eff, negs=negs, lrs=lrs,
+                  window_ok=window_ok, dm=dm)
+    consts = dict(group=group, lo=di * Vp, Vp=Vp, nsp=geo.nsp,
+                  neg_w=float(np.float32(negative) / np.float32(K)),
+                  update_cap=float(update_cap), prefetch=bool(prefetch),
+                  n_steps=S)
+    loss_sum, pairs_min1, pairs = run_chunk(
+        _chunk_step, S, {"w_local": w_local}, inputs, ops=ops, plain=PLAIN,
+        consts=consts, groups=(group,))
+    stats = comm.all_reduce(torch.stack([loss_sum, pairs_min1, pairs], 1),
+                            group)
     return w_local, stats[:, 0] / stats[:, 1], stats[:, 2]

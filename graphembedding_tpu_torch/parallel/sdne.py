@@ -18,6 +18,15 @@ updates (up to the order of float32 sums):
 Rows are zero-padded to a multiple of the axis size, and a row mask keeps
 the pads out of the reconstruction. No kernel of the port runs here: the
 products are cuBLAS calls and the sparse ones `ops.spmm`'s row-wise sums.
+
+A train's epochs between checkpoints run as one chunk of Adam steps
+(`models.sdne.adam_chunk`, with the data group as its `group`): each step
+takes this rank's loss and its gradients by `torch.autograd.grad` on
+leaves aliasing the chunk's buffers, sums the gradients over the axis in
+one flat buffer and applies Adam in place with the step's bias
+corrections. Over NCCL the chunk replays one CUDA graph, the all-gather
+of Y and its backward's sum inside it; over gloo with CUDA tensors the
+steps run one by one.
 """
 
 from __future__ import annotations
@@ -57,9 +66,11 @@ class _AllGatherRows(torch.autograd.Function):
         return comm.all_reduce(g, ctx.group)[lo:lo + ctx.rows], None, None
 
 
-def all_gather_rows(y, mesh):
-    return _AllGatherRows.apply(y, mesh.get_group("data"),
-                                mesh.get_local_rank("data"))
+def all_gather_rows(y, group, rank):
+    """[Vl, d] rows of every rank of `group` as [n * Vl, d], this rank's
+    at `rank`; the backward sums the cotangents over the ranks and keeps
+    this rank's rows."""
+    return _AllGatherRows.apply(y, group, rank)
 
 
 def pad_rows(A, L, num_nodes, n):
@@ -82,44 +93,38 @@ def local_rows(mesh, num_nodes):
     return lo, lo + Vl, max(min(num_nodes - lo, Vl), 0)
 
 
-def mesh_adam_step(net, opt, loss_fn, mesh):
-    """One Adam step (`opt`, a `train.adam.Adam` on net's parameters) on
-    the data-axis sum of loss_fn()'s local loss: the gradients all_reduced
-    in one flat buffer. Launched step by step (an exchange through gloo
-    cannot be captured into a CUDA graph). Returns the summed loss."""
-    group = mesh.get_group("data")
-    loss_l = loss_fn()
-    names, params = zip(*net.named_parameters())
-    grads = torch.autograd.grad(loss_l, params)
-    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
-    summed, off = {}, 0
-    for k, p in zip(names, params):
-        summed[k] = flat[off:off + p.numel()].view_as(p)
-        off += p.numel()
-    opt.step(summed)
-    return comm.all_reduce(loss_l.detach(), group)
-
-
-def sharded_sdne_train(net, opt, a_rows, l_rows, ok, *, mesh, num_nodes,
-                       alpha, beta, nu1, nu2, n_epochs):
-    """n_epochs full-batch Adam steps on this rank's rows: a_rows [Vl, V]
-    and l_rows [Vl, Vp] (`pad_rows`, sliced), ok [Vl]. Returns the summed
-    losses, a list of 0-d tensors."""
+def full_batch_objective(net, b, s, *, alpha, beta, nu1, nu2, n, V, group,
+                         rank):
+    """This rank's part of the full-batch loss on its rows b["A"] [Vl, V],
+    b["L"] [Vl, Vp] and row mask b["ok"] [Vl] (`models.sdne.adam_step`
+    sums it over `group`)."""
     from graphembedding_tpu_torch.models.sdne import weight_penalty
 
-    n, V = data_axis(mesh), num_nodes
+    a_rows, l_rows = b["A"], b["L"]
+    y = net.encode(a_rows)
+    a_hat = net.decode(y)
+    b_ = torch.where(a_rows != 0, beta, 1.0)
+    l2nd = (((a_rows - a_hat) * b_).square().sum(-1) * b["ok"]).sum() / V
+    y_full = all_gather_rows(y, group, rank)
+    l1st = alpha * 2.0 * (y * (l_rows @ y_full)).sum() / V
+    return l2nd + l1st + weight_penalty(net, nu1, nu2) / n
 
-    def loss_local():
-        y = net.encode(a_rows)
-        a_hat = net.decode(y)
-        b_ = torch.where(a_rows != 0, beta, 1.0)
-        l2nd = (((a_rows - a_hat) * b_).square().sum(-1) * ok).sum() / V
-        y_full = all_gather_rows(y, mesh)
-        l1st = alpha * 2.0 * (y * (l_rows @ y_full)).sum() / V
-        return l2nd + l1st + weight_penalty(net, nu1, nu2) / n
 
-    return [mesh_adam_step(net, opt, loss_local, mesh)
-            for _ in range(n_epochs)]
+def sharded_sdne_train(opt, a_rows, l_rows, ok, *, mesh, num_nodes, alpha,
+                       beta, nu1, nu2, n_epochs):
+    """n_epochs full-batch Adam steps (`opt`, a `train.adam.Adam` on the
+    parameters) on this rank's rows: a_rows [Vl, V] and l_rows [Vl, Vp]
+    (`pad_rows`, sliced), ok [Vl]. Returns the summed losses [n_epochs]."""
+    from graphembedding_tpu_torch.models.sdne import adam_chunk
+
+    return adam_chunk(opt, full_batch_objective, n_epochs,
+                      {"A": a_rows, "L": l_rows, "ok": ok}, alpha=alpha,
+                      beta=beta, nu1=nu1, nu2=nu2, n=data_axis(mesh),
+                      V=num_nodes, group=mesh.get_group("data"),
+                      rank=mesh.get_local_rank("data"))
+
+
+SPARSE_INPUTS = ("A", "At", "S", "St")  # the CSRs of `pad_sparse_inputs`
 
 
 def pad_sparse_inputs(graph, mesh, device):
@@ -143,41 +148,51 @@ def pad_sparse_inputs(graph, mesh, device):
     return A, At, S, St, csr_row_sums(S), nbr, nbr_w
 
 
-def sharded_sdne_sparse_train(net, opt, inputs, *, mesh, num_nodes, alpha,
-                              beta, nu1, nu2, n_epochs, row_chunk):
-    """n_epochs Adam steps of `train_sparse`'s objective on this rank's
-    rows (`pad_sparse_inputs`): the first layer as this rank's SpMM, the
+def sparse_objective(net, b, s, *, alpha, beta, nu1, nu2, n, V, group,
+                     rank, row_chunk):
+    """This rank's part of `train_sparse`'s loss on its rows
+    (`models.sdne.sparse_buffers` of `pad_sparse_inputs`): the first layer as this rank's SpMM, the
     reconstruction in checkpointed chunks of its real rows, the Laplacian
-    term as sum_i d_i |y_i|^2 - sum_i <y_i, (A_sym Y)_i> over its rows.
-    Returns the summed losses, a list of 0-d tensors."""
+    term as sum_i d_i |y_i|^2 - sum_i <y_i, (A_sym Y)_i> over its rows."""
     from graphembedding_tpu_torch.models.sdne import (
+        buffer_csrs,
         chunk_reconstruction,
         run_stack,
         weight_penalty,
     )
 
-    A, At, S, St, deg_w, nbr, nbr_w = inputs
-    n, V = data_axis(mesh), num_nodes
+    A, At, S, St = buffer_csrs(b, SPARSE_INPUTS)
+    deg_w, nbr, nbr_w = b["deg_w"], b["nbr"], b["nbr_w"]
     real = nbr.shape[0]
+    first = net.enc[0]
+    y = run_stack(net.enc[1:], torch.relu(spmm(A, first.w, At) + first.b))
+    y_full = all_gather_rows(y, group, rank)
+    l1st = alpha * 2.0 * ((deg_w[:, None] * y.square()).sum()
+                          - (y * spmm(S, y_full, St)).sum()) / V
+    l2nd = 0.0
+    for lo in range(0, real, row_chunk):
+        hi = min(lo + row_chunk, real)
+        l2nd = l2nd + checkpoint(
+            chunk_reconstruction, net, y[lo:hi], nbr[lo:hi], nbr_w[lo:hi],
+            beta, use_reentrant=False, preserve_rng_state=False)
+    return l2nd / V + l1st + weight_penalty(net, nu1, nu2) / n
 
-    def loss_local():
-        first = net.enc[0]
-        y = run_stack(net.enc[1:], torch.relu(spmm(A, first.w, At)
-                                              + first.b))
-        y_full = all_gather_rows(y, mesh)
-        l1st = alpha * 2.0 * ((deg_w[:, None] * y.square()).sum()
-                              - (y * spmm(S, y_full, St)).sum()) / V
-        l2nd = 0.0
-        for lo in range(0, real, row_chunk):
-            hi = min(lo + row_chunk, real)
-            l2nd = l2nd + checkpoint(
-                chunk_reconstruction, net, y[lo:hi], nbr[lo:hi],
-                nbr_w[lo:hi], beta, use_reentrant=False,
-                preserve_rng_state=False)
-        return l2nd / V + l1st + weight_penalty(net, nu1, nu2) / n
 
-    return [mesh_adam_step(net, opt, loss_local, mesh)
-            for _ in range(n_epochs)]
+def sharded_sdne_sparse_train(opt, inputs, *, mesh, num_nodes, alpha, beta,
+                              nu1, nu2, n_epochs, row_chunk):
+    """n_epochs Adam steps of `train_sparse`'s objective on this rank's
+    rows (`pad_sparse_inputs`; `sparse_objective`). Returns the summed
+    losses [n_epochs]."""
+    from graphembedding_tpu_torch.models.sdne import (
+        adam_chunk,
+        sparse_buffers,
+    )
+
+    return adam_chunk(opt, sparse_objective, n_epochs,
+                      sparse_buffers(inputs, SPARSE_INPUTS), alpha=alpha,
+                      beta=beta, nu1=nu1, nu2=nu2, n=data_axis(mesh),
+                      V=num_nodes, group=mesh.get_group("data"),
+                      rank=mesh.get_local_rank("data"), row_chunk=row_chunk)
 
 
 def shard_dense(A, L, mesh, num_nodes):

@@ -22,6 +22,11 @@ Counterpart of `graphembedding_tpu/parallel/sgns.py`:
 At model size 1 a step is the single-device `train.skipgram.sgns_step`
 (K3, K1, K2). The window draws `eff` are shared by the data ranks; only the
 negatives differ by rank (the JAX body folds only the negatives' key).
+
+A chunk's steps, the replica syncs among them, run through
+`train.chunk_graph.run_chunk` on buffers (the token blocks gathered into
+[S, G, PL], the learning rates as a float32 tensor): over NCCL one CUDA
+graph a chunk, over gloo with CUDA tensors the steps one by one.
 """
 
 from __future__ import annotations
@@ -33,8 +38,11 @@ import torch
 
 from graphembedding_tpu_torch.ops.sgns import sgns_block_grads_plain
 from graphembedding_tpu_torch.parallel import comm
+from graphembedding_tpu_torch.parallel.rowshard import offset_blocks
+from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 from graphembedding_tpu_torch.train.skipgram import (
     KERNELS,
+    PLAIN,
     block_geometry,
     sgns_step,
     step_lrs,
@@ -71,6 +79,36 @@ def sync_replicas(tables, bases, group):
         b.copy_(w)
 
 
+def synced(b, s, tables, data, sync_every, n_steps, step):
+    """step(), a chunk's step s on its buffers b, with its replicas' syncs:
+    step 0 first keeps the bases ("base/<name>" of each name in `tables`);
+    the replicas are synced after every `sync_every`-th step and once more
+    after the last, so they agree. Returns step()'s outputs."""
+    if s == 0:
+        for k in tables:
+            b[f"base/{k}"] = b[k].clone()
+    out = step()
+    syncs = int((s + 1) % sync_every == 0) + int(s + 1 == n_steps)
+    for _ in range(syncs):
+        sync_replicas([b[k] for k in tables], [b[f"base/{k}"]
+                                               for k in tables], data)
+    return out
+
+
+def _chunk_step(b, s, ops, *, data, model, nsp, neg_w, update_cap,
+                sync_every, n_steps):
+    """Step s of a chunk on its buffers (`chunk_graph.run_chunk`), then
+    its replica syncs."""
+    if model is not None:  # K1 fuses the dot product with the sigmoid
+        ops = ops._replace(grads=functools.partial(
+            sgns_block_grads_plain,
+            reduce=functools.partial(comm.all_reduce, group=model)))
+    return synced(b, s, ("w_cat",), data, sync_every, n_steps, lambda: (
+        sgns_step(b["w_cat"], b["tokens"][s], b["eff"][s], b["negs"][s],
+                  b["lrs"][s], window_ok=b["window_ok"], dm=b["dm"],
+                  nsp=nsp, neg_w=neg_w, update_cap=update_cap, ops=ops)))
+
+
 def sharded_sgns_chunk(w_cat, walks, eff, negs, alpha, min_alpha, t0,
                        total_steps, *, mesh, block_walks, window, negative,
                        neg_share_packs=4, update_cap=8.0, sync_every=None,
@@ -81,6 +119,11 @@ def sharded_sgns_chunk(w_cat, walks, eff, negs, alpha, min_alpha, t0,
     (updated in place); eff [S, G, PL] the window draws (the same on every
     rank), negs [S, G2, K] this data rank's negative ids. Returns (w_cat,
     losses [S] averaged over the data ranks, pairs [S] summed over them).
+
+    Over NCCL the S steps through the kernels replay one captured CUDA
+    graph (`chunk_graph.run_chunk`); over gloo with CUDA tensors, on the
+    CPU, or through the plain versions (`ops=PLAIN`), they are launched
+    one by one.
     """
     data, model = mesh.get_group("data"), mesh.get_group("model")
     n, di = mesh.size("data"), mesh.get_local_rank("data")
@@ -91,29 +134,22 @@ def sharded_sgns_chunk(w_cat, walks, eff, negs, alpha, min_alpha, t0,
             S, geo.G2, K):
         raise ValueError(f"draws eff {tuple(eff.shape)} / negs "
                          f"{tuple(negs.shape)} do not match {geo}")
-    sync_every = min(sync_every or DEFAULT_SYNC_EVERY, S)
-    if mesh.size("model") > 1:
-        ops = ops._replace(grads=functools.partial(
-            sgns_block_grads_plain,
-            reduce=functools.partial(comm.all_reduce, group=model)))
     window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    lrs = step_lrs(t0, S, alpha, min_alpha, total_steps)
-    offs = dp_offsets(t0, S, geo, block_walks, n, di)
-    neg_w = float(np.float32(negative) / np.float32(K))
-    w_base = w_cat.clone()
-    losses, pairs = [], []
+    lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha, total_steps),
+                          device=walks.device)
+    tokens = offset_blocks(
+        walks, dp_offsets(t0, S, geo, block_walks, n, di), geo)
+    inputs = dict(tokens=tokens, eff=eff, negs=negs, lrs=lrs,
+                  window_ok=window_ok, dm=dm)
+    tp = mesh.size("model") > 1
+    consts = dict(data=data, model=model if tp else None, nsp=geo.nsp,
+                  neg_w=float(np.float32(negative) / np.float32(K)),
+                  update_cap=float(update_cap),
+                  sync_every=min(sync_every or DEFAULT_SYNC_EVERY, S),
+                  n_steps=S)
     with f32_matmul():
-        for s in range(S):
-            tok = walks[offs[s]: offs[s] + geo.Bw].reshape(geo.G, geo.PL)
-            loss, p = sgns_step(
-                w_cat, tok, eff[s], negs[s], float(lrs[s]),
-                window_ok=window_ok, dm=dm, nsp=geo.nsp, neg_w=neg_w,
-                update_cap=float(update_cap), ops=ops)
-            losses.append(loss)
-            pairs.append(p)
-            if (s + 1) % sync_every == 0:
-                sync_replicas([w_cat], [w_base], data)
-    sync_replicas([w_cat], [w_base], data)  # so the replicas agree
-    stats = comm.all_reduce(torch.stack([torch.stack(losses),
-                                         torch.stack(pairs)]), data)
+        losses, pairs = run_chunk(
+            _chunk_step, S, {"w_cat": w_cat}, inputs, ops=ops, plain=PLAIN,
+            consts=consts, groups=(data, model) if tp else (data,))
+    stats = comm.all_reduce(torch.stack([losses, pairs]), data)
     return w_cat, stats[0] / n, stats[1]

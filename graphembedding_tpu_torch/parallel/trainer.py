@@ -12,6 +12,11 @@ in every rank's process. Two modes:
 - 'dp': table replicas over the data axis with their deltas summed every
   `dp_sync_every` steps, columns over the model axis (`parallel/sgns.py`).
 
+Over NCCL each chunk of `chunk_steps` steps replays one CUDA graph (the
+chunk functions' `train.chunk_graph.run_chunk`); over gloo with CUDA
+tensors its steps run one by one. The draws, the checkpoints and their
+bits are the same either way.
+
 The block and its packing follow the JAX trainer: the block is the
 single-device plan's (`train.skipgram.block_upscale`) capped at max(NW // 4,
 n) and at (NW // n) * n walks, so every rank's slice holds real walks, and

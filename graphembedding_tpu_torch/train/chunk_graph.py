@@ -3,7 +3,10 @@ the JAX package's one compiled `lax.scan` a chunk (SGNS at
 `graphembedding_tpu/train/skipgram.py:606` and `:633`, hierarchical
 softmax at `train/hsoftmax.py:249`, LINE at `models/line.py:96`, SDNE at
 `models/sdne.py:283`, `:337` and `:494`, the dense expected-SGNS fit at
-`train/dense.py:183`).
+`train/dense.py:183`; over a mesh, the `jit(shard_map(... lax.scan ...))`
+of `parallel/rowshard.py:300`, `parallel/sgns.py:235`,
+`parallel/hsoftmax.py:197`, `parallel/line.py:111` and
+`parallel/sdne.py:98` and `:248`).
 
 A step of the single-device trainers is a few dozen small launches (K1-K4
 and PyTorch's elementwise ops), and on an H100 the host's time to issue
@@ -23,6 +26,10 @@ What a graph reads and writes lives in buffers it owns:
   tensor, constant masks): copied in before each replay;
 - the steps' outputs (losses, pairs): the graph's own tensors, which the
   next replay overwrites, so `run_chunk` returns clones.
+A step may leave tensors for the next step of its chunk in its `bufs`
+under a name of its own (the row-sharded step's prefetched rows, a dp
+step's replica base): each run of a chunk's steps, and the warm-up, gets
+its own copy of the dict.
 A step may differentiate (SDNE's): it takes its gradients by
 `torch.autograd.grad` on leaves that alias its buffers, so the gradients
 are tensors of the graph's pool, and the warm-up runs its forward and
@@ -34,16 +41,31 @@ would be captured, and the first replay raises when it sees that
 generator move (and puts it back). A capture that a refused CUDA call
 invalidated leaves the default generator where it was, too.
 
-Graphs stay in a cache keyed by the device, the names, shapes and dtypes
-of the buffers, the step function, its kernels, its constants and the
+A step of a mesh trainer exchanges over process groups (`groups`). A
+graph captures an NCCL collective as graph nodes that hold the group's
+communicator; gloo stages an exchange of a CUDA tensor through host
+memory (`parallel.comm.host_staged`), which a capture refuses. So the rule
+is by backend, decided before any capture: a chunk whose exchanges are
+all on the card (NCCL, or gloo on CPU tensors) takes the graph path, and
+one with a host-staged exchange runs its steps one by one.
+
+Graphs stay in a cache keyed by the device, the process groups the steps
+exchange over with this process' rank, the names, shapes and dtypes of
+the buffers, the step function, its kernels, its constants and the
 float32 matmul setting (the captured cuBLAS calls depend on it), as `jit`
-keys its cache by shapes, so a warm fit replays without capturing.
-`release` drops them and their memory pools.
+keys its cache by shapes, so a warm fit replays without capturing, and a
+graph never replays under a group other than the one it was captured
+with. The key holds the group objects, so a group created after another
+was destroyed never matches the old one's graphs. `release` drops graphs
+and their memory pools (those of one group with `group=`); a process
+releases them before `torch.distributed.destroy_process_group`
+(`parallel.mesh.destroy_distributed`).
 
 Before a capture, `kernels.build.prepare` readies every kernel on the card
 without launching one, and one step runs through the plain versions on
 the capture stream, so that PyTorch's lazy state (cuBLAS's workspace for
-that stream) exists before the capture. Neither launches a kernel of the
+that stream, an NCCL group's communicator, made at its first collective)
+exists before the capture. Neither launches a kernel of the
 port, and a capture launches nothing, so the wrappers' counts are taken
 back after the capture and every replay adds the launches it holds
 (`LaunchCounts`): the counts read as if the steps had been launched one by
@@ -100,8 +122,10 @@ class LaunchCounts:
 
 def run_steps(step, n_steps, bufs, ops, consts):
     """`step(bufs, s, ops, **consts)` for s in 0 .. n_steps - 1, launched
-    one by one; each step returns a tuple of 0-d tensors. Returns the
+    one by one, on a copy of the dict bufs (which a step may add to for
+    its next step); each step returns a tuple of 0-d tensors. Returns the
     tuple of their [n_steps] stacks."""
+    bufs = dict(bufs)
     outs = [step(bufs, s, ops, **consts) for s in range(n_steps)]
     return tuple(torch.stack(o) for o in zip(*outs))
 
@@ -181,8 +205,9 @@ class ChunkGraph:
     """One captured chunk: its buffers, its outputs, its launches, and the
     host seconds its capture took (warm-up step included)."""
 
-    def __init__(self, step, n_steps, bufs, ops, plain, consts):
+    def __init__(self, step, n_steps, bufs, ops, plain, consts, groups=()):
         t0 = time.perf_counter()
+        self.groups = groups
         device = next(iter(bufs.values())).device
         self.bufs = {name: t.clone() for name, t in bufs.items()}
         self.counts = LaunchCounts()
@@ -193,7 +218,7 @@ class ChunkGraph:
                 return run_steps(step, n_steps, self.bufs, ops, consts)
 
         self.outputs = self.capture.capture(
-            body, lambda: step(self.bufs, 0, plain, **consts))
+            body, lambda: step(dict(self.bufs), 0, plain, **consts))
         self.seconds = time.perf_counter() - t0
 
     def run(self, tables, inputs):
@@ -212,7 +237,7 @@ _GRAPHS: dict = {}
 
 
 def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
-              consts=None):
+              consts=None, groups=()):
     """n_steps training steps `step(bufs, s, ops, **consts)` on `tables`
     (name -> tensor, updated in place) and `inputs` (name -> tensor, read
     only); `bufs` maps every name to its tensor. Each step returns a tuple
@@ -220,21 +245,35 @@ def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
 
     On a card (a device type in CAPTURES) the steps replay one captured
     graph, cached by the buffers' layout, `step`, `ops`, `consts` (a dict
-    of hashable Python values) and the float32 matmul setting; `plain`
-    (the plain versions of `ops`) runs one warm-up step before a capture.
-    On the CPU, or with ops `plain` (the plain versions make host round
-    trips, which a capture refuses), the steps are launched one by one on
-    the caller's tensors: the loop, the plain version of the graph.
-    ops None is a step that launches no kernel of the port (SDNE's, the
-    dense trainer's): it captures on a card, and warms up through the
-    same step.
+    of hashable Python values), `groups` and the float32 matmul setting;
+    `plain` (the plain versions of `ops`) runs one warm-up step before a
+    capture. On the CPU, or with ops `plain` (the plain versions make host
+    round trips, which a capture refuses), or when an exchange on one of
+    `groups` (the process groups the steps exchange over, every rank
+    running the same chunks) is staged through the host, the steps are
+    launched one by one on the caller's tensors: the loop, the plain
+    version of the graph. ops None is a step that launches no kernel of
+    the port (SDNE's, the dense trainer's): it captures on a card, and
+    warms up through the same step.
     """
     consts = consts or {}
     bufs = {**tables, **inputs}
     device = next(iter(tables.values())).device
-    if (ops is not None and ops is plain) or device.type not in CAPTURES:
+    if groups:
+        import torch.distributed as dist
+
+        from graphembedding_tpu_torch.parallel.comm import host_staged
+
+        groups = tuple(dist.group.WORLD if g is None else g for g in groups)
+        staged = any(host_staged(g, device) for g in groups)
+        ranks = (dist.get_rank(), *(dist.get_rank(g) for g in groups))
+    else:
+        staged, ranks = False, ()
+    if ((ops is not None and ops is plain) or staged
+            or device.type not in CAPTURES):
         return run_steps(step, n_steps, bufs, ops, consts)
-    key = (str(device), step, n_steps, ops, tuple(sorted(consts.items())),
+    key = (str(device), groups, ranks, step, n_steps, ops,
+           tuple(sorted(consts.items())),
            tuple((name, tuple(t.shape), t.dtype)
                  for name, t in sorted(bufs.items())),
            torch.get_float32_matmul_precision(),
@@ -242,33 +281,39 @@ def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
     graph = _GRAPHS.get(key)
     if graph is not None:
         return graph.run(tables, inputs)
-    graph = ChunkGraph(step, n_steps, bufs, ops, plain, consts)
+    graph = ChunkGraph(step, n_steps, bufs, ops, plain, consts, groups)
     out = graph.run(tables, inputs)  # a graph whose first replay fails is
     _GRAPHS[key] = graph             # not kept
     return out
 
 
-def _keys(device):
+def _keys(device, group=None):
     """The cache's keys on `device` (a card named without its index is the
-    current one), or all of them for None."""
-    if device is None:
-        return list(_GRAPHS)
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return [k for k in _GRAPHS if k[0] == str(device)]
+    current one; None: every device) whose steps exchange over `group`
+    (None: any keys)."""
+    keys = list(_GRAPHS)
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        keys = [k for k in keys if k[0] == str(device)]
+    if group is not None:
+        keys = [k for k in keys if group in _GRAPHS[k].groups]
+    return keys
 
 
-def held(device=None):
-    """The chunk graphs held (on `device`, or on every device)."""
-    return [_GRAPHS[k] for k in _keys(device)]
+def held(device=None, group=None):
+    """The chunk graphs held (on `device`, or on every device; with
+    `group`, those whose steps exchange over that process group)."""
+    return [_GRAPHS[k] for k in _keys(device, group)]
 
 
-def release(device=None):
-    """Drop the chunk graphs held (on `device`, or on every device) with
+def release(device=None, group=None):
+    """Drop the chunk graphs held (on `device`, or on every device; with
+    `group`, those whose steps exchange over that process group) with
     their buffers and memory pools; the next chunk of each shape captures
     again."""
-    for key in _keys(device):
+    for key in _keys(device, group):
         _GRAPHS.pop(key).capture.release()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()

@@ -27,7 +27,10 @@ elementwise bound holds. The co-occurrence matrix and LINE's dense
 adjacency equal the CPU's; its q = wdeg^0.75 (sums in another order)
 holds rtol=1e-6. The row-sharded SGNS chunk at world size 1 over NCCL (a
 spawned rank) equals the single-device chunk bit for bit, with K3 once, K1
-once and K2 twice a step.
+once and K2 twice a step; each mesh trainer's chunks there (rowshard with
+prefetch off and on, dp SGNS, HS and LINE, SDNE full batch and sparse)
+through their CUDA graphs, the NCCL exchanges inside, equal the same steps
+launched one by one, with the same launches.
 """
 
 import functools
@@ -966,6 +969,167 @@ def test_chunk_graph_equals_the_loop_on_card(cuda, kind, monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(out, loop))
     assert all(bool(torch.isfinite(t).all()) for t in loop)
     assert any(t.dim() == 1 and bool((t > 0).all()) for t in loop)  # losses
+
+
+# ---- the mesh trainers' chunks at world 1 over NCCL as CUDA graphs -----
+
+MESH_KINDS = ("rowshard", "rowshard prefetch", "dp", "hs", "line",
+              "sdne full", "sdne sparse")
+
+
+def mesh_chunks(dev, kind, mesh):
+    """run() for two chunks of a mesh trainer at the Wiki shapes on a
+    (1, 1) mesh: the rowshard and dp SGNS chunks (Bw = 4032) and the HS dp
+    chunk (Bw = 504) of 4 steps each, the second wrapping around the
+    corpus' blocks; the LINE dp chunk of 8 steps (B = 1024, order
+    'second'); SDNE [256, 128] over the mesh, 4 epochs in two chunks of a
+    checkpoint each. run() returns the tables, losses and pairs."""
+    import tempfile
+
+    from graphembedding_tpu_torch.parallel import hsoftmax as phs
+    from graphembedding_tpu_torch.parallel import line as pline
+    from graphembedding_tpu_torch.parallel import rowshard, sgns
+
+    if kind.startswith("sdne"):
+        g = load_dataset("wiki").graph
+        train = (lambda m, **k: m.train(batch_size=3000, epochs=4,
+                                        mesh=mesh, **k)) \
+            if kind == "sdne full" else (lambda m, **k: m.train_sparse(
+                epochs=4, row_chunk=512, mesh=mesh, **k))
+
+        def run():
+            m = SDNE(g, hidden_size=[256, 128], device=dev)
+            with tempfile.TemporaryDirectory() as d:
+                train(m, checkpoint_dir=d, checkpoint_every=2)
+            return [p.detach().clone() for p in m.net.parameters()] + [
+                m.losses]
+        return run
+    if kind == "line":
+        ds = load_dataset("wiki")
+        m = LINE(ds.graph, embedding_size=128, order="second", device=dev)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        draws = [line.line_bulk_samples(
+            m._edge_src, m._edge_dst, m._edge_accept, m._edge_alias,
+            m._neg_table, gen, 0.025, t0, 796.0, chunk_steps=8,
+            batch_size=1024, negative=5, k_shared=0) for t0 in (0, 8)]
+
+        def run():
+            emb, ctx = m.second_emb.clone(), m.context_emb.clone()
+            losses = [pline.sharded_line_chunk(emb, ctx, *d, mesh=mesh,
+                                               negative=5)[2] for d in draws]
+            return [emb, ctx, *losses]
+        return run
+    V, walks = wiki_walks(dev)
+    NW = walks.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if kind == "hs":
+        points, codes, _ = hs.build_huffman(sg.corpus_counts(walks, V))
+        points = torch.as_tensor(points, device=dev)
+        codes = torch.as_tensor(codes, device=dev)
+        geo = sgns.dp_geometry(NW, 10, 504, 1, 1)
+        w_in0 = (torch.rand((V, 128), generator=gen, device=dev) - 0.5) / 128
+        w_tree0 = torch.randn((V - 1, 128), generator=gen, device=dev) * 0.05
+        draws = [(t0, sg.window_draws(gen, (4, geo.G, geo.PL), 5))
+                 for t0 in (0, geo.n_blocks - 2)]
+
+        def run():
+            w_in, w_tree, out = w_in0.clone(), w_tree0.clone(), []
+            for t0, eff in draws:
+                out += phs.sharded_hs_chunk(
+                    w_in, w_tree, walks, points, codes, eff, 0.025, 1e-4,
+                    t0, 1152.0, mesh=mesh, block_walks=504, window=5)[2:]
+            return [w_in, w_tree, *out]
+        return run
+    geo = (rowshard.rank_geometry if kind.startswith("rowshard")
+           else sgns.dp_geometry)(NW, 10, 4032, 1, 4)
+    w0 = torch.cat([(torch.rand((V, 128), generator=gen, device=dev) - 0.5)
+                    / 128, torch.randn((V, 128), generator=gen, device=dev)
+                    * 0.05], 1)
+    draws = [(t0, sg.window_draws(gen, (4, geo.G, geo.PL), 5),
+              torch.randint(0, V, (4, geo.G2, 64), generator=gen, device=dev,
+                            dtype=torch.int32))
+             for t0 in (0, geo.n_blocks - 2)]
+    kw = dict(mesh=mesh, block_walks=4032, window=5, negative=5,
+              neg_share_packs=4)
+    if kind == "dp":
+        chunk = functools.partial(sgns.sharded_sgns_chunk, sync_every=2,
+                                  **kw)
+    else:
+        chunk = functools.partial(rowshard.rowsharded_sgns_chunk,
+                                  prefetch=kind == "rowshard prefetch", **kw)
+
+    def run():
+        w, out = w0.clone(), []
+        for t0, eff, negs in draws:
+            out += chunk(w, walks, eff, negs, 0.025, 1e-4, t0, 192.0)[1:]
+        return [w, *out]
+    return run
+
+
+def mesh_chunks_world1_rank(info):
+    """In a spawned NCCL rank of world size 1: each kind of `mesh_chunks`
+    launched one by one (the card out of `chunk_graph.CAPTURES`), then
+    through a capture and through replays alone; for each kind whether the
+    graphs' outputs equal the loop's, the launches of each way, the graphs
+    held and whether the loop's outputs are finite."""
+    from graphembedding_tpu_torch.parallel import make_mesh
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = info.device
+    mesh = make_mesh((1, 1), device=dev)
+    out = {}
+    for kind in MESH_KINDS:
+        run = mesh_chunks(dev, kind, mesh)
+        chunk_graph.release()
+        got = {}
+        for graphs in (False, True, True):  # the loop; a capture; replays
+            cuda = None if graphs else chunk_graph.CAPTURES.pop("cuda")
+            try:
+                before = [k.launches for k in chunk_graph.COUNTERS]
+                res = run()
+                torch.cuda.synchronize()
+            finally:
+                if cuda is not None:
+                    chunk_graph.CAPTURES["cuda"] = cuda
+            got.setdefault(graphs, []).append(
+                (res, [k.launches - b for k, b in
+                       zip(chunk_graph.COUNTERS, before)]))
+        (loop, loop_n), = got[False]
+        out[kind] = dict(
+            held=len(chunk_graph.held(dev)), loop_n=loop_n,
+            graph_n=[n for _, n in got[True]],
+            equal=[all(torch.equal(a, b) for a, b in zip(res, loop))
+                   for res, _ in got[True]],
+            finite=all(bool(torch.isfinite(t).all()) for t in loop))
+        chunk_graph.release()
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_world1():
+    """`mesh_chunks_world1_rank`'s results, or skip where there is no
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (NCCL and the kernels)")
+    from graphembedding_tpu_torch.parallel.launch import run_ranks
+
+    [out] = run_ranks(mesh_chunks_world1_rank, 1, backend="nccl",
+                      device="cuda:0", timeout_s=600)
+    return out
+
+
+@pytest.mark.parametrize("kind", MESH_KINDS)
+def test_mesh_chunk_graph_equals_the_loop_on_card(mesh_world1, kind):
+    """At world 1 over NCCL, two chunks of each mesh trainer through one
+    captured CUDA graph (a capture, then replays alone) torch.equal to the
+    same chunks launched one by one: tables, losses, pairs; K1-K4 (none
+    for SDNE) launched as many times each way."""
+    got = mesh_world1[kind]
+    assert got["held"] == 1 and got["finite"], got
+    assert got["equal"] == [True, True], got
+    assert got["graph_n"] == [got["loop_n"]] * 2, got
+    assert (sum(got["loop_n"]) == 0) == kind.startswith("sdne"), got
 
 
 def sdne_chunks(cuda, mode):

@@ -14,7 +14,7 @@ Prints one JSON line a (configuration, seed).
     JAX_PLATFORMS=cpu python tools/reference_f1.py [--seeds 0 1 2]
         [--configs sdne_full sdne_minibatch sdne_sparse deepwalk_dense
                    line_dense line_blogcatalog mesh_deepwalk_rowshard
-                   mesh_deepwalk_dp mesh_deepwalk_hs mesh_line mesh_sdne
+                   mesh_deepwalk_rowshard_prefetch mesh_deepwalk_dp mesh_deepwalk_hs mesh_line mesh_sdne
                    mesh_walks_deepwalk_rowshard mesh_walks_deepwalk_dp
                    mesh_walks_deepwalk_a2a mesh_walks_node2vec
                    mesh_walks_struc2vec]
@@ -44,6 +44,10 @@ CONFIGS = {
                         "epochs=50) on blogcatalog",
     "mesh_deepwalk_rowshard": "DeepWalk(10, 80).train(embed_size=128, "
                               "window_size=5, iter=3, mesh=(2, 1))",
+    "mesh_deepwalk_rowshard_prefetch": "DeepWalk(10, 80).train("
+                                       "embed_size=128, window_size=5, "
+                                       "iter=3, mesh=(2, 1), "
+                                       "rowshard_prefetch=True)",
     "mesh_deepwalk_dp": "DeepWalk(10, 80).train(embed_size=128, "
                         "window_size=5, iter=3, mesh=(2, 1), "
                         "parallel_mode='dp')",
@@ -113,7 +117,9 @@ def train(name, graph, seed):
     if name.startswith("mesh_deepwalk"):
         m = DeepWalk(graph, walk_length=10, num_walks=80, seed=seed)
         kw = {"mesh_deepwalk_dp": dict(parallel_mode="dp"),
-              "mesh_deepwalk_hs": dict(hs=1)}.get(name, {})
+              "mesh_deepwalk_hs": dict(hs=1),
+              "mesh_deepwalk_rowshard_prefetch": dict(
+                  rowshard_prefetch=True)}.get(name, {})
         return m.train(embed_size=128, window_size=5, iter=3,
                        mesh=mesh_of_two(), **kw)
     if name == "mesh_line":
