@@ -209,6 +209,23 @@ Phases 27-28 run none of K1-K5 in the walks; the trains launch them.
      K1-K5 launched; then LINE 'all' on BlogCatalog through the loop
      against phase 22's train through the graphs (tables, micro-F1,
      launches).
+ 30. the large-V path: benchmarks.million.synthetic_graph(1,000,000, 10)
+     -> DeepWalk(walk_length=10, num_walks=5, device='cuda') ->
+     train(embed_size=128, window_size=5, iter=1) with cap_mode 'auto'
+     (the sparse cap at this V) and then 'dense', each cold (its chunk
+     graphs captured) and warm, counts from 0 before the walks: K1, K2 and
+     K3 launched, embeddings finite, the loss falling; build s, walked
+     edges/s cold and warm (every hop an edge), train s and trained
+     pairs/s, the device time and busy share of a warm train
+     (torch.profiler), reserved memory after each train and after a
+     release; the chunk-graph cache within its budget
+     (`train/chunk_graph.py::BUDGET_BYTES`) after every train (and, in
+     main, after each group of phases 6-30); a chunk of 4 sparse-cap steps
+     at V = 1M through K1-K3 against the plain versions (rtol 1e-4, atol
+     1e-6) and through its graph torch.equal to the loop, launches equal;
+     K2 at the sparse step's token call bit-equal to the CPU plain version,
+     in turns with `index_add_`, beside its bound; then `table_scale
+     --nodes 1000000` and `pq_crossover --degrees 512` once each.
 World size 2 on one card measures correctness and the exchanges' cost, not
 scaling: both ranks share the card, and gloo moves every exchange through
 host memory.
@@ -616,18 +633,27 @@ def main():
     if "jax" in sys.modules:
         fail("jax was imported")
 
-    line_phases(dev, card, records, record)
-    node2vec_phases(dev, card)
-    hs_phases(dev, card, records, record)
-    struc2vec_phase(dev, card)
-    sdne_phases(dev, card)
-    dense_phase(dev, card)
-    restart_phases(dev, card)
-    blogcatalog = blogcatalog_phase(dev, card)
-    simquery_phase(dev, card)
-    mesh_phases(card)
-    mesh_walk_phases(card)
-    chunk_graph_phase(dev, card, blogcatalog)
+    # each group of phases, then the chunk graphs it left held, which must
+    # fit the cache's budget (phase 30 checks after each of its trains)
+    done = {}
+    for name, phases in (
+            ("line_phases", lambda: line_phases(dev, card, records, record)),
+            ("node2vec_phases", lambda: node2vec_phases(dev, card)),
+            ("hs_phases", lambda: hs_phases(dev, card, records, record)),
+            ("struc2vec_phase", lambda: struc2vec_phase(dev, card)),
+            ("sdne_phases", lambda: sdne_phases(dev, card)),
+            ("dense_phase", lambda: dense_phase(dev, card)),
+            ("restart_phases", lambda: restart_phases(dev, card)),
+            ("blogcatalog_phase", lambda: blogcatalog_phase(dev, card)),
+            ("simquery_phase", lambda: simquery_phase(dev, card)),
+            ("mesh_phases", lambda: mesh_phases(card)),
+            ("mesh_walk_phases", lambda: mesh_walk_phases(card)),
+            ("chunk_graph_phase", lambda: chunk_graph_phase(
+                dev, card, done["blogcatalog_phase"])),
+            ("large_v_phase", lambda: large_v_phase(dev, card, records,
+                                                    record))):
+        done[name] = phases()
+        print(f"after {name}: {check_cache_bound(dev, name)}", flush=True)
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
@@ -2058,6 +2084,286 @@ def chunk_graph_phase(dev, card, blogcatalog):
           f"micro-F1 {res['micro']:.4f} both, launches {launches} both "
           f"[{card}]", flush=True)
     print(f"phase 29: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+LARGE_V = 1_000_000  # phase 30: DeepWalk at a million nodes
+# phase 30's sparse chunk through K1-K3 against the plain versions: phase
+# 4's tolerance (the plain scatter on the card sums with atomics)
+LARGE_V_TOL = (1e-4, 1e-6)
+# the sparse-cap train's table against the dense-cap train's, from the same
+# seed (the same initial table and draws): the forms add in another order,
+# about 1e-7 a step (tests/test_torch_large_v.py), over 192 steps
+LARGE_V_FORMS_TOL = (1e-3, 1e-5)
+
+
+def check_cache_bound(dev, what):
+    """Fails unless the chunk graphs held on dev fit the cache's budget
+    (or one graph, larger than the budget, is held alone); returns a text
+    of what is held."""
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    graphs = chunk_graph.held(dev)
+    nbytes = chunk_graph.held_bytes(dev)
+    if nbytes > chunk_graph.BUDGET_BYTES and len(graphs) > 1:
+        fail(f"{what}: {len(graphs)} chunk graphs hold {nbytes} bytes, over "
+             f"the budget of {chunk_graph.BUDGET_BYTES}")
+    return (f"{len(graphs)} chunk graphs held, {nbytes / 2**20:.1f} MiB of "
+            f"the {chunk_graph.BUDGET_BYTES / 2**20:.0f} MiB budget")
+
+
+def reserved_text():
+    import torch
+
+    return f"reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB"
+
+
+def hops_on_device(walks, graph, dev, what):
+    """Fails unless every hop of walks follows an edge of graph (a sorted
+    search on the card); returns the hops."""
+    import torch
+
+    dg = graph.to(dev)
+    V = graph.num_nodes
+    src = torch.repeat_interleave(torch.arange(V, device=dev),
+                                  dg.degree.long())
+    keys = src * V + dg.col_idx.long()  # sorted: the CSR's order
+    u, v = walks[:, :-1].reshape(-1).long(), walks[:, 1:].reshape(-1).long()
+    hop = v >= 0
+    q = u[hop] * V + v[hop]
+    at = torch.searchsorted(keys, q).clamp(max=keys.numel() - 1)
+    if not bool((keys[at] == q).all()):
+        fail(f"{what}: a hop follows no edge of the graph")
+    return int(q.numel())
+
+
+def large_v_phase(dev, card, records, record):
+    """Phase 30: DeepWalk's SGNS at V = 1,000,000, D = 128 on
+    `benchmarks.million.synthetic_graph(1M, 10)`, 5 walks of 10 a node, one
+    epoch: cap_mode 'auto' (the sparse cap here) cold and warm, then
+    'dense' cold and warm, each through its chunk graphs; K1-K3 launched;
+    a chunk of sparse-cap steps through the kernels against the plain
+    versions and through its graph against the loop; K2 at the sparse
+    step's token call against the CPU plain version, `index_add_` and its
+    bound; the cache within its budget after every train (and the graphs
+    of the earlier phases); `table_scale --nodes 1000000` and
+    `pq_crossover --degrees 512` once each."""
+    import torch
+
+    from graphembedding_tpu_torch import DeepWalk
+    from graphembedding_tpu_torch.benchmarks import (
+        million, pq_crossover, table_scale)
+    from graphembedding_tpu_torch.benchmarks.common import (
+        median_ms, turns_ms)
+    from graphembedding_tpu_torch.ops.rows import (
+        scatter_add_rows, scatter_add_rows_plain)
+    from graphembedding_tpu_torch.ops.walk import simulate_walks
+    from graphembedding_tpu_torch.train import chunk_graph
+    from graphembedding_tpu_torch.train import skipgram as sg
+
+    t_phase = time.perf_counter()
+    V, D, L, W = LARGE_V, 128, 10, 5
+    print(f"large V: before: {check_cache_bound(dev, 'phases 1-29')}, "
+          f"{reserved_text()}", flush=True)
+    g, build_s = timed_walks(lambda: million.synthetic_graph(V, 10, seed=0,
+                                                             device=dev))
+    want_edges = 2 * (V + million.random_edge_count(V, 10))
+    if g.num_edges != want_edges or g.num_nodes != V:
+        fail(f"large V: {g.num_nodes} nodes, {g.num_edges} edge entries; "
+             f"want {V}, {want_edges}")
+    print(f"large V: synthetic_graph({V}, 10) built in {build_s:.4f} s: "
+          f"{g.num_edges} directed entries, max degree {g.max_degree} "
+          f"[{card}]", flush=True)
+
+    # the main path: counts from 0 before the model walks and trains
+    kernels = kernel_counts()
+    for k in kernels.values():
+        k.launches = 0
+    model, walk_cold = timed_walks(
+        lambda: DeepWalk(g, walk_length=L, num_walks=5, device=dev))
+
+    def walk():
+        gen = torch.Generator(device=dev).manual_seed(model.seed)
+        return simulate_walks(g, 5, L, generator=gen)
+    walks, walk_warm = min((timed_walks(walk) for _ in range(2)),
+                           key=lambda r: r[1])
+    if not torch.equal(walks, model.walks):
+        fail("large V: a walk from the model's seed differs from its own")
+    del walks
+    hops = hops_on_device(model.walks, g, dev, "large V corpus")
+    print(f"large V walks [{model.walks.shape[0]}, {L}]: every hop an edge; "
+          f"cold {walk_cold:.4f} s ({hops / walk_cold:.4e} walked edges/s), "
+          f"warm {walk_warm:.4f} s ({hops / walk_warm:.4e} walked edges/s) "
+          f"[{card}]", flush=True)
+    g.free_device()
+
+    def train(mode):
+        model.train(embed_size=D, window_size=W, iter=1, cap_mode=mode)
+
+    results, tables = {}, {}
+    for mode in ("auto", "dense"):
+        _, cold = timed_walks(lambda: train(mode))
+        after_cold = reserved_text()
+        if mode == "auto":
+            launches = {name: k.launches for name, k in kernels.items()}
+            print(f"large V main path launches: {launches}", flush=True)
+            for name in ("sgns_block_grads", "scatter_add_rows",
+                         "gather_rows"):
+                if launches[name] == 0:
+                    fail(f"kernel {name} never launched on the large-V path")
+        warm = min(timed_walks(lambda: train(mode))[1] for _ in range(2))
+        losses, pairs = model.losses, model.trained_pairs
+        table = model.embedding_table
+        if (tuple(table.shape) != (V, D) or not torch.isfinite(table).all()
+                or not torch.isfinite(losses).all()):
+            fail(f"large V {mode}: embeddings {tuple(table.shape)} or "
+                 f"losses not finite")
+        head, tail = float(losses[:20].mean()), float(losses[-20:].mean())
+        if not tail < head:
+            fail(f"large V {mode}: the loss did not fall ({head} -> {tail})")
+        results[mode] = (cold, warm, pairs)
+        tables[mode] = (model.w_in, model.w_out)
+        form = ("sparse" if sg.sparse_cap_for(mode, V) else "dense")
+        print(f"large V train cap_mode={mode!r} ({form} cap), "
+              f"{losses.shape[0]} steps: cold {cold:.4f} s "
+              f"({pairs / cold:.4e} pairs/s, {after_cold} after it), warm "
+              f"{warm:.4f} s ({pairs / warm:.4e} trained pairs/s, "
+              f"{pairs:.0f} pairs), loss {head:.6f} -> {tail:.6f}; "
+              f"{reserved_text()} after it; "
+              f"{check_cache_bound(dev, f'large V {mode}')} [{card}]",
+              flush=True)
+        print(f"  {profiled_text(lambda: train(mode), warm)} [{card}]",
+              flush=True)
+    k2_launches = launches["scatter_add_rows"]
+    rtol, atol = LARGE_V_FORMS_TOL
+    errs = [max_err(a, b, rtol, atol, f"large V: the sparse-cap train's "
+                    f"{half} against the dense-cap train's")
+            for a, b, half in zip(tables["auto"], tables["dense"],
+                                  ("w_in", "w_out"))]
+    moved = float(tables["auto"][1].abs().max())
+    print(f"large V: the sparse-cap train's tables against the dense-cap "
+          f"train's from the same seed: max abs err w_in {errs[0]:.3e}, "
+          f"w_out {errs[1]:.3e} (rtol {rtol}, atol {atol}); w_out moved "
+          f"from 0 to max |w| {moved:.3e} [{card}]", flush=True)
+    if not moved > 0:
+        fail("large V: the train left w_out at zero")
+    del tables
+
+    # a chunk of sparse-cap steps at V = 1M from the trained table: the
+    # kernels (through the chunk's graph) against the plain versions, and
+    # the graph against the loop of the same steps
+    NW = model.walks.shape[0]
+    cfg = sg.SkipGramConfig()
+    bw = sg.plan_block_walks(NW, L, V, cfg)
+    geo = sg.block_geometry(NW, L, bw, cfg.neg_share_packs)
+    S, K = 4, cfg.k_shared
+    gen = torch.Generator(device=dev).manual_seed(3)
+    eff = sg.window_draws(gen, (S, geo.G, geo.PL), W)
+    negs = torch.randint(0, V, (S, geo.G2, K), generator=gen, device=dev,
+                         dtype=torch.int32)
+    w0 = torch.cat([model.w_in, model.w_out], 1)
+    kw = dict(block_walks=bw, window=W, negative=5,
+              neg_share_packs=cfg.neg_share_packs, sparse_cap=True)
+
+    def chunk(ops=sg.KERNELS):
+        w = w0.clone()
+        _, losses, pairs = sg.sgns_block_chunk_cat(
+            w, model.walks, eff, negs, 0.025, 1e-4, 0, 155.0, ops=ops, **kw)
+        torch.cuda.synchronize()
+        return w, losses, pairs
+
+    (a, la, pa), n_graph = counted(chunk)
+    b, lb, pb = chunk(sg.PLAIN)
+    rtol, atol = LARGE_V_TOL
+    err = max_err(a, b, rtol, atol, "large V sparse chunk: table")
+    max_err(la, lb, rtol, atol, "large V sparse chunk: loss")
+    if not torch.equal(pa, pb):
+        fail("large V sparse chunk: pair counts differ")
+    del b
+    with step_loop():
+        (c, lc, pc), n_loop = counted(chunk)
+    if not (torch.equal(a, c) and torch.equal(la, lc) and torch.equal(pa, pc)
+            and n_graph == n_loop):
+        fail(f"large V sparse chunk: the graph differs from the loop "
+             f"(launches {n_graph} against {n_loop})")
+    del a, c
+    print(f"large V sparse chunk, {S} steps of Bw = {geo.Bw} (G = {geo.G}, "
+          f"PL = {geo.PL}, G2 = {geo.G2}, K = {K}): kernels against plain "
+          f"max abs err {err:.3e} (rtol {rtol}, atol {atol}); the graph "
+          f"torch.equal to the loop, launches {n_graph} both [{card}]",
+          flush=True)
+
+    # K2 at the sparse step's token call: [G*PL, 2D] pre-scaled rows into
+    # the [V, 2D] table (pads -1)
+    seen = []
+
+    def keep_call(table, ids, grads):
+        seen.append((tuple(table.shape), ids.clone(), grads.clone()))
+        return scatter_add_rows_plain(table, ids, grads)
+    window_ok, dm = sg.window_geometry(L, geo.PL, W, dev)
+    tok = sg.chunk_blocks(model.walks, 0, 1, geo)[0]
+    sg.sgns_step(w0.clone(), tok, eff[0], negs[0], 0.025,
+                 window_ok=window_ok, dm=dm, nsp=geo.nsp,
+                 neg_w=float(np.float32(5) / np.float32(K)),
+                 update_cap=8.0, sparse_cap=True,
+                 ops=sg.PLAIN._replace(scatter_add=keep_call))
+    (_, n_ids, n_w), ((_, C), ids, grads), (_, g_ids, _) = seen
+    tab = torch.zeros((V, C), device=dev)
+    got = scatter_add_rows(tab.clone(), ids, grads)
+    want = scatter_add_rows_plain(tab.cpu(), ids.cpu(), grads.cpu())
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu(), want):
+        fail("large V: K2 at the token call differs from the CPU plain "
+             "version's sequential sum")
+    del got, want
+    keep = ids >= 0
+    ids_in, grads_in = ids[keep].long(), grads[keep].contiguous()
+    ms, lib_ms = turns_ms(lambda: scatter_add_rows(tab, ids, grads),
+                          lambda: tab.index_add_(0, ids_in, grads_in))
+    plain_ms = median_ms(lambda: scatter_add_rows_plain(tab, ids, grads))
+    bound = rows_bound_ms(ids, V, C, None)
+    occ = torch.zeros((V, 1), device=dev)
+    occ_ms, occ_lib = turns_ms(
+        lambda: scatter_add_rows(occ, n_ids, n_w),
+        lambda: occ.index_add_(0, n_ids.long(), n_w))
+    print(f"  K2 at the sparse step's calls: tokens [{ids.numel()}, {C}] "
+          f"into [{V}, {C}] ({int(keep.sum())} kept, "
+          f"{int(ids_in.unique().numel())} rows): bit-equal to the CPU plain "
+          f"version; {ms:.4f} ms vs index_add_ {lib_ms:.4f} ms in turns, "
+          f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms; negatives' "
+          f"occupancy [{n_ids.numel()}, 1] into [{V}, 1]: {occ_ms:.4f} ms vs "
+          f"index_add_ {occ_lib:.4f} ms; {k2_launches} K2 launches in the "
+          f"auto train [{card}]", flush=True)
+    record("scatter_add_rows[1M sparse tokens]",
+           "graphembedding_tpu_torch/csrc/rows.cu",
+           "graphembedding_tpu/ops/pallas_scatter.py:67", 0.0, ms, plain_ms,
+           bound, lib_ms)
+    records[-1]["launches"] = k2_launches
+    del tab, occ, seen, ids, grads, ids_in, grads_in, w0
+
+    cold, warm, pairs = results["dense"]
+    s_cold, s_warm, _ = results["auto"]
+    print(f"large V: warm train sparse {s_warm:.4f} s against dense "
+          f"{warm:.4f} s ({warm / s_warm:.2f}x) [{card}]", flush=True)
+    del model
+    print(f"large V: after the trains: {check_cache_bound(dev, 'large V')}, "
+          f"{reserved_text()}", flush=True)
+    chunk_graph.release(dev)
+    print(f"large V: after chunk_graph.release(): {reserved_text()}",
+          flush=True)
+
+    # the harness modules, once each on the card
+    rows = table_scale.main(["--nodes", str(V)])
+    print(f"  table_scale: {check_cache_bound(dev, 'table_scale')}",
+          flush=True)
+    if [r["cap_mode"] for r in rows] != ["dense", "sparse"] or not all(
+            r["pairs_per_s"] > 0 for r in rows):
+        fail(f"table_scale: {rows}")
+    rows = pq_crossover.main(["--degrees", "512"])
+    if len(rows) != 1 or rows[0]["winner"] not in (
+            "exact", "rejection", "rejection_dense"):
+        fail(f"pq_crossover: {rows}")
+    chunk_graph.release(dev)
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def simquery_phase(dev, card):

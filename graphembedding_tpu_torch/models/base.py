@@ -37,8 +37,7 @@ from graphembedding_tpu_torch.train.skipgram import (
 )
 
 # options of the JAX package's trainer that the port does not have
-_NOT_PORTED = ("cap_mode", "shuffle_mode", "use_pallas", "matmul_bf16",
-               "stale_groups")
+_NOT_PORTED = ("shuffle_mode", "use_pallas", "matmul_bf16", "stale_groups")
 
 
 def as_graph(graph) -> Graph:
@@ -107,6 +106,12 @@ class WalkEmbeddingModel:
         fit_kw = dict(checkpoint_dir=checkpoint_dir,
                       checkpoint_every=checkpoint_every, metrics=metrics)
         if hs:
+            if "cap_mode" in kwargs:
+                # SGNS's cap_mode is ported; the hierarchical-softmax
+                # trainer has the dense cap only
+                raise NotImplementedError(
+                    "cap_mode= with hs=1 (the sparse cap of hierarchical "
+                    "softmax) is not ported to graphembedding_tpu_torch")
             # as in the JAX package: window, epochs and seed kwargs win
             # over the explicit arguments, and seed + 1 seeds the fit
             seed = kwargs.get("seed", self.seed)

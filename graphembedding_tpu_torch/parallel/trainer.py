@@ -17,6 +17,9 @@ chunk functions' `train.chunk_graph.run_chunk`); over gloo with CUDA
 tensors its steps run one by one. The draws, the checkpoints and their
 bits are the same either way.
 
+Both modes apply the dense cap whatever the config's `cap_mode`, as the
+JAX package's mesh trainers do.
+
 The block and its packing follow the JAX trainer: the block is the
 single-device plan's (`train.skipgram.block_upscale`) capped at max(NW // 4,
 n) and at (NW // n) * n walks, so every rank's slice holds real walks, and

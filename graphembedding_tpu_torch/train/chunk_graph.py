@@ -61,6 +61,15 @@ and their memory pools (those of one group with `group=`); a process
 releases them before `torch.distributed.destroy_process_group`
 (`parallel.mesh.destroy_distributed`).
 
+The cache is bounded on each device by `BUDGET_BYTES`. A graph costs the
+bytes of the buffers it owns plus the growth of the device's reserved
+memory over its capture (its private memory pool). The cache
+drops the least recently replayed graphs of a device, as `release` does:
+before a capture, until the others and the new graph's buffers fit the
+budget; after it, until all fit, the new graph kept. A graph larger than
+the budget is still kept, alone. A replay makes a graph the most recent,
+so a train that runs one shape chunk after chunk never captures twice.
+
 Before a capture, `kernels.build.prepare` readies every kernel on the card
 without launching one, and one step runs through the plain versions on
 the capture stream, so that PyTorch's lazy state (cuBLAS's workspace for
@@ -137,10 +146,13 @@ class CudaCapture:
         self.device = device
         self.graph = None
         self.replays = 0
+        self.pool_bytes = 0
 
     def capture(self, body, warm_up):
         """body() under capture, after warm_up() on the capture stream;
-        returns body's outputs (tensors of the graph's pool)."""
+        returns body's outputs (tensors of the graph's pool). Sets
+        `pool_bytes`: the card's reserved memory the capture added, the
+        graph's private memory pool."""
         dev = self.device
         kb.prepare(dev.index)
         stream = torch.cuda.Stream(dev)
@@ -150,6 +162,7 @@ class CudaCapture:
             warm_up()
             stream.synchronize()
             rng = torch.cuda.default_generators[dev.index].get_state()
+            reserved = torch.cuda.memory_reserved(dev)
             graph.capture_begin()
             try:
                 outputs = body()
@@ -157,6 +170,7 @@ class CudaCapture:
                 self._end_failed(graph, rng)
                 raise
             graph.capture_end()
+        self.pool_bytes = max(torch.cuda.memory_reserved(dev) - reserved, 0)
         torch.cuda.current_stream(dev).wait_stream(stream)
         self.graph = graph
         return outputs
@@ -201,9 +215,16 @@ class CudaCapture:
 CAPTURES = {"cuda": CudaCapture}
 
 
+def tensor_bytes(tensors):
+    """The bytes of the tensors' elements."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 class ChunkGraph:
-    """One captured chunk: its buffers, its outputs, its launches, and the
-    host seconds its capture took (warm-up step included)."""
+    """One captured chunk: its buffers, its outputs, its launches, the
+    host seconds its capture took (warm-up step included), and its cost in
+    bytes (`nbytes`: its buffers, and its capture's memory pool where the
+    capture reports one as `pool_bytes`)."""
 
     def __init__(self, step, n_steps, bufs, ops, plain, consts, groups=()):
         t0 = time.perf_counter()
@@ -219,6 +240,8 @@ class ChunkGraph:
 
         self.outputs = self.capture.capture(
             body, lambda: step(dict(self.bufs), 0, plain, **consts))
+        self.nbytes = tensor_bytes(self.bufs.values()) + getattr(
+            self.capture, "pool_bytes", 0)
         self.seconds = time.perf_counter() - t0
 
     def run(self, tables, inputs):
@@ -233,7 +256,36 @@ class ChunkGraph:
         return tuple(o.clone() for o in self.outputs)
 
 
+# The most bytes the chunk graphs of one device may hold (`ChunkGraph.
+# nbytes`). 16 GiB is a fifth of an 80 GB H100: it holds the largest graphs
+# the port's trains capture (on an H100: DeepWalk at V = 1M, 3.0 GiB with
+# the sparse cap and 5.7 GiB with the dense one; SDNE `train_sparse` at
+# V = 100,000 reserved about 11 GiB with its warm-up) beside a few small
+# ones, and leaves the rest of the card to the train in flight: its
+# tables, corpus and optimiser state live outside the cache.
+BUDGET_BYTES = 16 << 30
+
+# the cached graphs by key, the least recently replayed first
 _GRAPHS: dict = {}
+
+
+def _evict(device, need=0, keep=None):
+    """Drop the least recently replayed graphs on `device` (a str), never
+    `keep`, until those left plus `need` bytes fit BUDGET_BYTES."""
+    keys = [k for k in _GRAPHS if k[0] == device]
+    total = need + sum(_GRAPHS[k].nbytes for k in keys)
+    dropped = False
+    for key in keys:
+        if total <= BUDGET_BYTES:
+            break
+        if key == keep:
+            continue
+        graph = _GRAPHS.pop(key)
+        total -= graph.nbytes
+        graph.capture.release()
+        dropped = True
+    if dropped and device.startswith("cuda"):
+        torch.cuda.empty_cache()
 
 
 def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
@@ -278,12 +330,15 @@ def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
                  for name, t in sorted(bufs.items())),
            torch.get_float32_matmul_precision(),
            torch.backends.cuda.matmul.allow_tf32)
-    graph = _GRAPHS.get(key)
+    graph = _GRAPHS.pop(key, None)
     if graph is not None:
+        _GRAPHS[key] = graph  # the most recent
         return graph.run(tables, inputs)
+    _evict(key[0], tensor_bytes(bufs.values()))
     graph = ChunkGraph(step, n_steps, bufs, ops, plain, consts, groups)
     out = graph.run(tables, inputs)  # a graph whose first replay fails is
     _GRAPHS[key] = graph             # not kept
+    _evict(key[0], keep=key)
     return out
 
 
@@ -304,8 +359,15 @@ def _keys(device, group=None):
 
 def held(device=None, group=None):
     """The chunk graphs held (on `device`, or on every device; with
-    `group`, those whose steps exchange over that process group)."""
+    `group`, those whose steps exchange over that process group), the
+    least recently replayed first."""
     return [_GRAPHS[k] for k in _keys(device, group)]
+
+
+def held_bytes(device=None, group=None):
+    """The bytes the graphs `held(device, group)` cost (`ChunkGraph.
+    nbytes`), which BUDGET_BYTES bounds on each device."""
+    return sum(g.nbytes for g in held(device, group))
 
 
 def release(device=None, group=None):

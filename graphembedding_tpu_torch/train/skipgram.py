@@ -1,13 +1,18 @@
 """Walk-block skip-gram with negative sampling (SGNS) in PyTorch.
 
-Counterpart of `graphembedding_tpu/train/skipgram.py` (the block trainer
-with the dense update cap, one step at a time). Each step takes a block of
-Bw walks from the shuffled corpus, packs P = 128 // L walks into each of
-G groups of PL = P*L positions, gathers their rows of the fused [V, 2D]
-table (K3), scores all window pairs and K negatives shared by `nsp`
-consecutive groups (K1), and scatter-adds the gradients with a per-row
-occupancy count (K2) so each row's update is capped at `update_cap`
-sequential-update magnitudes.
+Counterpart of `graphembedding_tpu/train/skipgram.py` (the block
+trainer). Each step takes a block of Bw walks from the shuffled corpus,
+packs P = 128 // L walks into each of G groups of PL = P*L positions,
+gathers their rows of the fused [V, 2D] table (K3), scores all window
+pairs and K negatives shared by `nsp` consecutive groups (K1), and
+scatter-adds the gradients (K2) with each row's update capped at
+`update_cap` sequential-update magnitudes by its occupancy in the step.
+The cap takes one of the JAX package's two forms (`cap_mode`, picked by
+`sparse_cap_for`): dense, the gradients summed into [V, 2D + 1] and
+[V, D + 1] buffers whose last column counts the occupancy, then scaled
+and added to the whole table; or sparse, the occupancies summed into two
+[V] vectors, each gradient row scaled by its row's cap and scattered
+straight into the table, no [V, D]-sized buffer.
 
 The random draws of a chunk of steps (`eff`, the dynamic window, and
 `negs`, the shared negatives) are inputs of `sgns_block_chunk_cat`, so a
@@ -20,8 +25,7 @@ on the CPU, or through the plain versions, they run one by one.
 the generator's states, so a resumed fit is bit-identical to an
 uninterrupted one) and logs one metrics line a chunk.
 
-Not ported: the sparse cap form (the dense form computes the same update
-at any V), `stale_groups`, `use_pallas`/`matmul_bf16`,
+Not ported: `stale_groups`, `use_pallas`/`matmul_bf16`,
 `shuffle_mode='block'`, the re-gathering epoch pass.
 """
 
@@ -67,6 +71,9 @@ class SkipGramConfig:
     sample: float = 1e-3  # frequent-node subsampling threshold; 0 off
     chunk_steps: int = 64  # steps per chunk of draws
     update_cap: float = 8.0  # per-row cap in sequential-update magnitudes
+    # 'dense' | 'sparse' | 'auto': the form of the cap (`sparse_cap_for`);
+    # the two forms compute the same update in another order of additions
+    cap_mode: str = "auto"
     # over a mesh (parallel/trainer.py): 'rowshard' fetches step t+1's rows
     # before step t's update lands; 'dp' syncs its replicas every this many
     # steps (0: the default, 4)
@@ -253,14 +260,38 @@ def step_inputs(w_cat, tok, eff_b, neg, window_ok, dm, nsp, ops=KERNELS):
     return tok_safe, y, vn, mask, neg_ok
 
 
+# the JAX package's auto rule (`graphembedding_tpu/train/skipgram.py:877-
+# 886`): the sparse cap from 2^16 rows on. Kept as it is so that both
+# packages train the same steps; the H100's own crossover is in PERF.md
+# (`benchmarks/table_scale.py`) and not acted on here.
+SPARSE_CAP_MIN_NODES = 1 << 16
+CAP_MODES = ("dense", "sparse", "auto")
+
+
+def sparse_cap_for(cap_mode, num_nodes) -> bool:
+    """Whether a fit over num_nodes rows takes the sparse cap: 'sparse', or
+    'auto' from SPARSE_CAP_MIN_NODES rows on."""
+    if cap_mode not in CAP_MODES:
+        raise ValueError(f"cap_mode {cap_mode!r} is not one of {CAP_MODES}")
+    if cap_mode == "auto":
+        return num_nodes >= SPARSE_CAP_MIN_NODES
+    return cap_mode == "sparse"
+
+
+def negative_weights(mask, neg_w, G2, K):
+    """[G2*K]: each negative's event weight, its sharing group's n_pairs *
+    neg_w summed over the group's centers (mask [G, PL, PL])."""
+    n_pairs = mask.sum(2)
+    return (n_pairs.reshape(G2, -1) * neg_w).sum(1)[:, None].expand(
+        G2, K).reshape(-1)
+
+
 def event_rows(d_yin, d_yout, d_vn, mask, neg_w):
     """The rows of a step's two scatters, occupancy riding as the last
     column: tokens [G*PL, 2D+1] = (d_yin | d_yout | 1), negatives
     [G2*K, D+1] = (d_vn | its sharing group's n_pairs * neg_w)."""
     G2, K, D = d_vn.shape
-    n_pairs = mask.sum(2)
-    neg_weight = (n_pairs.reshape(G2, -1) * neg_w).sum(1)[:, None].expand(
-        G2, K).reshape(-1)
+    neg_weight = negative_weights(mask, neg_w, G2, K)
     ones = torch.ones((d_yin.shape[0] * d_yin.shape[1], 1),
                       dtype=torch.float32, device=d_yin.device)
     d_tok = torch.cat([d_yin.reshape(-1, D), d_yout.reshape(-1, D), ones], 1)
@@ -281,17 +312,63 @@ def capped_update(w_cat, tbuf, nbuf, lr, update_cap):
     w_cat[:, D:].add_((-lr) * nbuf[:, :D] * neg_scale)
 
 
+def sparse_capped_update(w_cat, tok, neg, d_yin, d_yout, d_vn, mask, lr,
+                         neg_w, update_cap, ops=KERNELS):
+    """The sparse form of the cap (the JAX package's `sparse_cap` step,
+    `graphembedding_tpu/train/skipgram.py:503-543`); updates w_cat [V, 2D]
+    in place and builds no [V, D]-sized buffer:
+    1. two [V] occupancies: 1 a token (pads, -1 in tok, count into row 0,
+       as the JAX step scatters them there), and a negative's sharing
+       group's n_pairs * neg_w;
+    2. each token's and negative's scale min(1, cap / max(occupancy, 1)),
+       gathered back from its row;
+    3. the pre-scaled rows scattered into the table by `ops.scatter_add`
+       (K2): -lr * (d_yin | d_yout) * scale a token into w_cat, then -lr *
+       d_vn * scale a negative into its output half. K2 adds each row in
+       index order from the table's value, so this is the JAX step's one
+       scatter of (tokens | (0 | negatives)) without its zero half.
+
+    The token occupancy is a sum of ones, exact in float32 in any order, so
+    an atomic `index_add_` gives the same value run to run; the negatives'
+    weights need not sum exactly, so they go through the deterministic
+    scatter. The update adds each scaled row into the table where the dense
+    form sums a row's rows first and adds once: the two forms agree to
+    float32 rounding, not bit for bit."""
+    V = w_cat.shape[0]
+    G2, K, D = d_vn.shape
+    flat, nflat = tok.reshape(-1), neg.reshape(-1)
+    tok_safe = flat.clamp(min=0)
+    occ_t = torch.zeros(V, dtype=torch.float32, device=w_cat.device)
+    occ_t.index_add_(0, tok_safe.long(), torch.ones_like(
+        flat, dtype=torch.float32))
+    occ_n = ops.scatter_add(
+        torch.zeros((V, 1), dtype=torch.float32, device=w_cat.device),
+        nflat, negative_weights(mask, neg_w, G2, K)[:, None])[:, 0]
+    tok_scale = (update_cap / occ_t[tok_safe].clamp(min=1.0)).clamp(max=1.0)
+    neg_scale = (update_cap / occ_n[nflat].clamp(min=1.0)).clamp(max=1.0)
+    d_tok = torch.cat([d_yin.reshape(-1, D), d_yout.reshape(-1, D)], 1)
+    ops.scatter_add(w_cat, flat, (-lr) * (d_tok * tok_scale[:, None]))
+    ops.scatter_add(w_cat[:, D:], nflat,
+                    (-lr) * (d_vn.reshape(-1, D) * neg_scale[:, None]))
+
+
 def sgns_step(w_cat, tok, eff_b, neg, lr, *, window_ok, dm, nsp, neg_w,
-              update_cap, ops=KERNELS):
-    """One SGNS step with the dense update cap; updates w_cat in place.
-    lr: a float, or a 0-d float32 tensor of the same value (the same
-    bits). Returns (loss, pairs) as 0-d tensors."""
+              update_cap, sparse_cap=False, ops=KERNELS):
+    """One SGNS step, its cap dense or sparse (`sparse_capped_update`);
+    updates w_cat in place. lr: a float, or a 0-d float32 tensor of the
+    same value (the same bits). Returns (loss, pairs) as 0-d tensors."""
     V, C = w_cat.shape
     D = C // 2
     _, y, vn, mask, neg_ok = step_inputs(
         w_cat, tok, eff_b, neg, window_ok, dm, nsp, ops)
     d_yin, d_yout, d_vn, loss_g = ops.grads(
         y[..., :D], y[..., D:], vn, mask, neg_ok, neg_w)
+    pairs = mask.sum()
+    loss = loss_g.sum() / pairs.clamp(min=1.0)
+    if sparse_cap:
+        sparse_capped_update(w_cat, tok, neg, d_yin, d_yout, d_vn, mask, lr,
+                             neg_w, update_cap, ops)
+        return loss, pairs
 
     # per-row accumulation cap: a row touched R times in one step moves
     # by its summed update scaled by min(1, cap / R). Occupancy rides as
@@ -310,9 +387,7 @@ def sgns_step(w_cat, tok, eff_b, neg, lr, *, window_ok, dm, nsp, neg_w,
         torch.zeros((V, D + 1), dtype=torch.float32, device=w_cat.device),
         neg.reshape(-1), d_neg)
     capped_update(w_cat, tbuf, nbuf, lr, update_cap)
-
-    pairs = mask.sum()
-    return loss_g.sum() / pairs.clamp(min=1.0), pairs
+    return loss, pairs
 
 
 def window_draws(gen, shape, window):
@@ -341,24 +416,27 @@ def chunk_blocks(walks, t0, S, geo):
     return blocks.index_select(0, ids).view(S, geo.G, geo.PL)
 
 
-def _chunk_step(b, s, ops, *, nsp, neg_w, update_cap):
+def _chunk_step(b, s, ops, *, nsp, neg_w, update_cap, sparse_cap):
     """Step s of a chunk on its buffers (`chunk_graph.run_chunk`)."""
     return sgns_step(b["w_cat"], b["tokens"][s], b["eff"][s], b["negs"][s],
                      b["lrs"][s], window_ok=b["window_ok"], dm=b["dm"],
-                     nsp=nsp, neg_w=neg_w, update_cap=update_cap, ops=ops)
+                     nsp=nsp, neg_w=neg_w, update_cap=update_cap,
+                     sparse_cap=sparse_cap, ops=ops)
 
 
 def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
                          total_steps, *, block_walks, window, negative,
-                         neg_share_packs=1, update_cap=8.0, ops=KERNELS):
+                         neg_share_packs=1, update_cap=8.0, sparse_cap=False,
+                         ops=KERNELS):
     """S = eff.shape[0] SGNS steps over consecutive walk blocks.
 
     Step t trains on walks [((t0 + t) % n_blocks) * Bw : + Bw] with
     learning rate max(min_alpha, alpha * (1 - (t0 + t) / total_steps)),
     computed in float32 as the JAX package does. `eff` [S, G, PL] holds
     the window draws in {1..window} and `negs` [S, G2, K] the shared
-    negative ids. Updates w_cat [V, 2D] in place and returns
-    (w_cat, losses [S], pairs [S]).
+    negative ids. `sparse_cap` picks the cap's form (`sgns_step`).
+    Updates w_cat [V, 2D] in place and returns (w_cat, losses [S],
+    pairs [S]).
 
     On a card the S steps through the kernels replay one captured CUDA
     graph (`chunk_graph.run_chunk`); on the CPU, or through the plain
@@ -379,7 +457,7 @@ def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
                   lrs=lrs, window_ok=window_ok, dm=dm)
     consts = dict(nsp=geo.nsp, neg_w=float(np.float32(negative)
                                             / np.float32(K)),
-                  update_cap=float(update_cap))
+                  update_cap=float(update_cap), sparse_cap=bool(sparse_cap))
     losses, pairs = run_chunk(_chunk_step, S, {"w_cat": w_cat}, inputs,
                               ops=ops, plain=PLAIN, consts=consts)
     return w_cat, losses, pairs
@@ -496,6 +574,7 @@ class SkipGramTrainer:
         # chunk_steps steps, wrapping over the blocks
         total_steps = cfg.epochs * chunks_per_epoch * cfg.chunk_steps
         k_shared = min(cfg.k_shared, num_nodes)
+        sparse_cap = sparse_cap_for(cfg.cap_mode, num_nodes)
 
         # negative table and keep-probabilities from the raw corpus counts
         counts = corpus_counts(walks, num_nodes)
@@ -537,7 +616,7 @@ class SkipGramTrainer:
                     total_steps, block_walks=bw, window=cfg.window,
                     negative=cfg.negative,
                     neg_share_packs=cfg.neg_share_packs,
-                    update_cap=cfg.update_cap)
+                    update_cap=cfg.update_cap, sparse_cap=sparse_cap)
                 losses.append(lc)
                 pairs.append(pc)
                 t += S

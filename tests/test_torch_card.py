@@ -10,7 +10,8 @@ steps, of the row benchmarks and of Struc2Vec's walk on flight-brazil.
 Tolerances: the gathers (K3, K5) are exact; K1 rtol=2e-4, atol=1e-5
 (split-TF32 products, f32 sums in another order) and the same bits from
 run to run; K2 and K4 are bit-equal to the plain version's sequential sum
-on the CPU and to each other; four SGNS steps rtol=1e-4, atol=1e-6, four
+on the CPU and to each other; four SGNS steps (either cap) rtol=1e-4,
+atol=1e-6, four
 LINE steps and four HS steps rtol=1e-5, atol=1e-6 (the plain version on
 the card scatters with atomics); the multilayer walk is bit-identical from
 one seed; a resumed train is bit-identical to an uninterrupted one, and
@@ -412,6 +413,45 @@ def test_four_steps_match_plain(cuda):
                                atol=1e-6)
     np.testing.assert_allclose(la.cpu().numpy(), lb.cpu().numpy(),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("V", [2405, 200_000])
+def test_four_sparse_cap_steps_match_plain(cuda, V):
+    """Four steps with the sparse cap (`sparse_capped_update`) through
+    K1-K3 against the plain versions from the same table and draws, at
+    Wiki's V and at one where K2 sorts by radix: rtol 1e-4, atol 1e-6, as
+    the dense steps; K3 twice, K1 once and K2 three times a step (the
+    negatives' occupancy, the tokens' rows, the negatives' rows)."""
+    D, L, Bw, K = 128, 10, 4032, 64
+    NW = max(16128, 5 * V)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    walks = torch.randint(0, V, (NW, L), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    walks[::7, 6:] = -1  # dead-ended walks
+    walks[:64, 0] = 0  # row 0 beside pads
+    geo = sg.block_geometry(NW, L, Bw, 4)
+    eff = 5 - (torch.rand((4, geo.G, geo.PL), generator=gen, device=cuda)
+               * 5).to(torch.int32).clamp(0, 4)
+    negs = torch.randint(0, V, (4, geo.G2, K), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    w0 = (torch.rand((V, 2 * D), generator=gen, device=cuda) - 0.5) / D
+    kw = dict(block_walks=Bw, window=5, negative=5, neg_share_packs=4,
+              sparse_cap=True)
+    kernels = (gather_rows, sgns_block_grads, scatter_add_rows)
+    before = [k.launches for k in kernels]
+    a, la, pa = sg.sgns_block_chunk_cat(w0.clone(), walks, eff, negs, 0.025,
+                                        1e-4, 0, 192.0, **kw)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kernels, before)] == [8, 4, 12]
+    b, lb, pb = sg.sgns_block_chunk_cat(w0.clone(), walks, eff, negs, 0.025,
+                                        1e-4, 0, 192.0, ops=sg.PLAIN, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(la.cpu().numpy(), lb.cpu().numpy(),
+                               rtol=1e-4)
+    assert torch.equal(pa, pb)
+    assert float((a - w0).abs().max()) > 1e-4
 
 
 def rowshard_world1_rank(info, S):
@@ -850,9 +890,10 @@ def wiki_walks(cuda, seed=1):
     return ds.graph.num_nodes, simulate_walks(ds.graph, 80, 10, generator=gen)
 
 
-def sgns_chunks(cuda):
+def sgns_chunks(cuda, sparse_cap=False):
     """DeepWalk on Wiki's step (Bw = 4032: 47 blocks), two chunks of 4
-    steps, the second over blocks 45, 46, 0, 1."""
+    steps, the second over blocks 45, 46, 0, 1; the cap dense or
+    sparse."""
     V, walks = wiki_walks(cuda)
     D, K, W = 128, 64, 5
     geo = sg.block_geometry(walks.shape[0], 10, 4032, 4)
@@ -870,7 +911,8 @@ def sgns_chunks(cuda):
         for t0, eff, negs in draws:
             _, losses, pairs = sg.sgns_block_chunk_cat(
                 w, walks, eff, negs, 0.025, 1e-4, t0, 192.0, block_walks=4032,
-                window=W, negative=5, neg_share_packs=4)
+                window=W, negative=5, neg_share_packs=4,
+                sparse_cap=sparse_cap)
             out += [losses, pairs]
         return [w, *out]
     return run
@@ -933,8 +975,8 @@ def line_chunks(cuda, order):
     return run
 
 
-@pytest.mark.parametrize("kind", ["sgns", "hs wiki", "hs tree",
-                                  "line second", "line first"])
+@pytest.mark.parametrize("kind", ["sgns", "sgns sparse", "hs wiki",
+                                  "hs tree", "line second", "line first"])
 def test_chunk_graph_equals_the_loop_on_card(cuda, kind, monkeypatch):
     """Two chunks replayed from one captured CUDA graph torch.equal to the
     same chunks launched one by one (the card taken out of
@@ -945,6 +987,7 @@ def test_chunk_graph_equals_the_loop_on_card(cuda, kind, monkeypatch):
     from graphembedding_tpu_torch.train import chunk_graph
 
     run = {"sgns": lambda: sgns_chunks(cuda),
+           "sgns sparse": lambda: sgns_chunks(cuda, sparse_cap=True),
            "hs wiki": lambda: hs_chunks(cuda, "wiki"),
            "hs tree": lambda: hs_chunks(cuda, "tree"),
            "line second": lambda: line_chunks(cuda, "second"),

@@ -688,3 +688,178 @@ def test_dense_fit_equals_the_loop(graphs, path, tied):
         fresh = fit(12)
         assert len(graphs) == 2
         assert all(torch.equal(a, b) for a, b in zip(fresh, cached[1]))
+
+
+# ---- the sparse cap's chunks ------------------------------------------------
+
+def test_sparse_sgns_chunks_through_graph_equal_the_loop(graphs):
+    """Three chunks of `sgns_block_chunk_cat(sparse_cap=True)` through the
+    graph path's buffers torch.equal to the same chunks launched one by
+    one; the form is part of the cache key (a dense chunk of the same
+    shapes captures a graph of its own)."""
+    walks = corpus(3)
+    geo = tsg.block_geometry(NW, L, BLOCK_WALKS, 1)
+    gen = torch.Generator().manual_seed(4)
+    w0 = torch.cat([(torch.rand((V, 8), generator=gen) - 0.5) / 8,
+                    torch.randn((V, 8), generator=gen) * 0.1], 1)
+    kw = dict(block_walks=BLOCK_WALKS, window=2, negative=5,
+              neg_share_packs=1, update_cap=1.5)
+    draws = [(tsg.window_draws(gen, (S, geo.G, geo.PL), 2),
+              torch.randint(0, V, (S, geo.G2, 4), generator=gen,
+                            dtype=torch.int32)) for _ in CHUNK_T0]
+
+    def run(sparse):
+        w = w0.clone()
+        out = [tsg.sgns_block_chunk_cat(w, walks, eff, negs, 0.025, 1e-4,
+                                        t0, 9.0, sparse_cap=sparse, **kw)[1:]
+               for t0, (eff, negs) in zip(CHUNK_T0, draws)]
+        return w, out
+
+    got, got_out = run(True)
+    assert len(graphs) == 1
+    dense, _ = run(False)
+    assert len(graphs) == 2 and len(cg.held("cpu")) == 2
+    without_graphs()
+    want, want_out = run(True)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for x, y in zip(got_out, want_out)
+               for a, b in zip(x, y))
+    assert not torch.equal(got, w0) and not torch.equal(got, dense)
+
+
+# ---- the cache's bound ------------------------------------------------------
+
+def sdne_trains(sizes):
+    """SDNE full-batch trains on graphs of `sizes` nodes, one model after
+    another (each deleted after its train), each leaving a graph of its
+    own shape in the cache; yields (the model's parameters, the graphs
+    held on the CPU and their bytes after the train)."""
+    from graphembedding_tpu_torch import SDNE
+    from graphembedding_tpu_torch.data import datasets as tds
+
+    for n in sizes:
+        g = tds.synthetic_wiki(num_nodes=n, num_classes=3, avg_degree=4,
+                               seed=3).graph
+        m = SDNE(g, hidden_size=[12, 6], seed=1, device="cpu")
+        m.train(batch_size=n, epochs=3)
+        params = sdne_params(m)
+        del m
+        yield params, len(cg.held("cpu")), cg.held_bytes("cpu")
+
+
+PROBE = (200, 300, 400)
+
+
+def test_cache_holds_every_shape_within_the_default_budget(graphs):
+    """At the default budget the probe's three graphs stay held, their
+    bytes the buffers each owns (the dense A and L among them)."""
+    held = [(n, b) for _, n, b in sdne_trains(PROBE)]
+    assert [n for n, _ in held] == [1, 2, 3]
+    costs = [g.nbytes for g in cg.held("cpu")]
+    assert all(c == cg.tensor_bytes(g.bufs.values())
+               for c, g in zip(costs, cg.held("cpu")))
+    assert costs[0] < costs[1] < costs[2]
+    assert held[-1][1] == sum(costs) <= cg.BUDGET_BYTES
+
+
+def test_cache_evicts_the_least_recent_past_its_budget(graphs, monkeypatch):
+    """A budget that holds the last two of the probe's graphs: the third
+    train's capture drops the first, the least recent; held() stays within
+    the budget in count and in bytes after every train, and the trains
+    equal those of an unbounded cache."""
+    unbounded = [p for p, _, _ in sdne_trains(PROBE)]
+    costs = [g.nbytes for g in cg.held("cpu")]
+    cg.release()
+    budget = costs[1] + costs[2]
+    monkeypatch.setattr(cg, "BUDGET_BYTES", budget)
+    before = len(graphs)
+    counts = []
+    for (params, n, nbytes), want in zip(sdne_trains(PROBE), unbounded):
+        counts.append(n)
+        assert nbytes <= budget
+        assert all(torch.equal(a, b) for a, b in zip(params, want))
+    assert counts == [1, 2, 2]
+    assert len(graphs) - before == 3
+    assert [g.nbytes for g in cg.held("cpu")] == costs[1:]
+    assert graphs[before].body is None  # released
+    assert all(g.body is not None for g in graphs[before + 1:])
+
+
+def test_a_graph_over_the_budget_is_kept_alone_and_reused(graphs,
+                                                          monkeypatch):
+    """With a budget below any graph's cost each new shape's graph is held
+    alone; two same-shape trains back to back capture once."""
+    monkeypatch.setattr(cg, "BUDGET_BYTES", 1)
+    got = [n for _, n, _ in sdne_trains((200, 200, 300, 300, 200))]
+    assert got == [1] * 5
+    assert len(graphs) == 3  # 200, 300, then 200 again after its eviction
+
+
+def table_step(b, s, ops):
+    b["t"].add_(b["x"][s])
+    return (b["t"].sum(),)
+
+
+def test_a_replay_makes_a_graph_the_most_recent(graphs, monkeypatch):
+    """Graphs of n = 3, then 4, then 3 replayed, then 5 under a budget
+    that holds the graphs of 3 and 5: the graph of 4, the least recently
+    replayed, goes; release(device) drops those of the device."""
+    tables = {n: torch.zeros(n) for n in (3, 4, 5)}
+
+    def run(n):
+        cg.run_chunk(table_step, 2, {"t": tables[n]},
+                     {"x": torch.ones(2, n)}, ops="kernels", plain=None)
+
+    run(3)
+    run(4)
+    # a graph of n owns t [n] and x [2, n] in float32: 12 n bytes
+    assert cg.held_bytes("cpu") == 12 * (3 + 4)
+    monkeypatch.setattr(cg, "BUDGET_BYTES", 12 * (3 + 5))
+    run(3)  # a replay: no capture, 3 becomes the most recent
+    assert len(graphs) == 2
+    run(5)
+    assert [g.bufs["t"].numel() for g in cg.held("cpu")] == [3, 5]
+    assert cg.held_bytes("cpu") <= cg.BUDGET_BYTES
+    assert torch.equal(tables[3], torch.full((3,), 4.0))
+    cg.release("meta")  # no graph there: nothing dropped
+    assert len(cg.held()) == 2
+    cg.release("cpu")
+    assert not cg.held() and cg.held_bytes() == 0
+
+
+def test_group_release_under_the_budget(graphs, tmp_path, monkeypatch):
+    """Over one gloo rank on CPU tensors (the graph path): graphs of two
+    groups and of none; a tight budget evicts across groups by recency
+    alone; release(group=) drops only that group's graphs, and
+    `destroy_distributed` those of every group, keeping the graph of no
+    group."""
+    import torch.distributed as dist
+
+    from graphembedding_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.init_distributed(0, 1, "gloo", f"file://{tmp_path}/store")
+    try:
+        g1, g2 = dist.new_group([0]), dist.new_group([0])
+
+        def run(n, groups):
+            cg.run_chunk(table_step, 2, {"t": torch.zeros(n)},
+                         {"x": torch.ones(2, n)}, ops="kernels", plain=None,
+                         groups=groups)
+
+        run(3, (g1,))
+        run(3, (g2,))
+        run(4, ())
+        run(5, (g1,))
+        assert len(graphs) == 4 and len(cg.held("cpu", g1)) == 2
+        cg.release(group=g1)
+        assert [g.groups for g in cg.held()] == [(g2,), ()]
+        # room for the graphs of 4 and 6 (12 n bytes each)
+        monkeypatch.setattr(cg, "BUDGET_BYTES", 12 * (4 + 6))
+        run(6, (g1,))  # over the budget: the oldest, g2's, goes
+        assert [g.groups for g in cg.held()] == [(), (g1,)]
+        assert len(graphs) == 5
+        pmesh.destroy_distributed()
+        assert [g.groups for g in cg.held()] == [()]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

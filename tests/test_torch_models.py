@@ -103,8 +103,11 @@ def test_deepwalk_hard_sbm_gate():
 def test_unsupported_options_raise(tmp_path):
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
     m = DeepWalk(ds.graph, walk_length=5, num_walks=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        m.train(embed_size=8, iter=1, cap_mode="sparse")
+    # SGNS's cap_mode= is ported (tests/test_torch_large_v.py); the
+    # block-preserving shuffle and the HS sparse cap are not
+    for kw in ({"shuffle_mode": "block"}, {"hs": 1, "cap_mode": "sparse"}):
+        with pytest.raises(NotImplementedError):
+            m.train(embed_size=8, iter=1, **kw)
     # train(mesh=) is ported (tests/test_torch_parallel_models.py) and takes
     # a parallel.mesh.Mesh only
     for kw in ({"mesh": object()}, {"hs": 1, "mesh": object()}):
@@ -183,6 +186,9 @@ def test_port_imports_no_jax():
             "graphembedding_tpu_torch.benchmarks.scatter_bench, "
             "graphembedding_tpu_torch.benchmarks.spmm_bench, "
             "graphembedding_tpu_torch.benchmarks.train_profile, "
+            "graphembedding_tpu_torch.benchmarks.million, "
+            "graphembedding_tpu_torch.benchmarks.table_scale, "
+            "graphembedding_tpu_torch.benchmarks.pq_crossover, "
             "graphembedding_tpu_torch.utils, "
             "graphembedding_tpu_torch.utils.checkpoint, "
             "graphembedding_tpu_torch.utils.metrics, "
