@@ -106,14 +106,10 @@ class WalkEmbeddingModel:
         fit_kw = dict(checkpoint_dir=checkpoint_dir,
                       checkpoint_every=checkpoint_every, metrics=metrics)
         if hs:
-            if "cap_mode" in kwargs:
-                # SGNS's cap_mode is ported; the hierarchical-softmax
-                # trainer has the dense cap only
-                raise NotImplementedError(
-                    "cap_mode= with hs=1 (the sparse cap of hierarchical "
-                    "softmax) is not ported to graphembedding_tpu_torch")
             # as in the JAX package: window, epochs and seed kwargs win
-            # over the explicit arguments, and seed + 1 seeds the fit
+            # over the explicit arguments, and seed + 1 seeds the fit; a
+            # cap_mode kwarg is accepted and not passed on, so the fit
+            # takes HSTrainer's 'auto'
             seed = kwargs.get("seed", self.seed)
             hst = HSTrainer(embed_size=embed_size,
                             window=kwargs.get("window", window_size),

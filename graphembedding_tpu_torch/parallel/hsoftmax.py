@@ -13,7 +13,9 @@ dp SGNS mode (`parallel/sgns.py`):
 
 A step is the single-device `train.hsoftmax.hs_step` (K3 gathers; K4, or K2
 above `ops.rows.SMALL_V_ROWS` rows, by `ops.rows.scatter_add_table`), with
-the model-axis sum as its `reduce`. The window draws `eff` differ by data
+the model-axis sum as its `reduce`, and the dense form of the cap whatever
+`HSTrainer(cap_mode=)` says: the JAX package's `sharded_hs_chunk` takes no
+`sparse_cap` either. The window draws `eff` differ by data
 rank: the JAX body folds their key by the data index. A chunk's steps and
 syncs run through `train.chunk_graph.run_chunk` as the dp SGNS chunk's do
 (over NCCL one CUDA graph a chunk; `points` and `codes` constant inputs).

@@ -288,6 +288,19 @@ def _evict(device, need=0, keep=None):
         torch.cuda.empty_cache()
 
 
+def join_groups(groups, device):
+    """One small all-reduce on each of `groups` before a capture. NCCL
+    creates a group's communicator at the group's first collective, which
+    a capture refuses ("operation not permitted when stream is
+    capturing"), and the warm-up step need not exchange: a dp step syncs
+    its replicas every few steps only. Every rank captures the same chunk,
+    so every rank joins the same groups in the same order."""
+    import torch.distributed as dist
+
+    for group in groups:
+        dist.all_reduce(torch.zeros(1, device=device), group=group)
+
+
 def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
               consts=None, groups=()):
     """n_steps training steps `step(bufs, s, ops, **consts)` on `tables`
@@ -335,6 +348,7 @@ def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
         _GRAPHS[key] = graph  # the most recent
         return graph.run(tables, inputs)
     _evict(key[0], tensor_bytes(bufs.values()))
+    join_groups(groups, device)
     graph = ChunkGraph(step, n_steps, bufs, ops, plain, consts, groups)
     out = graph.run(tables, inputs)  # a graph whose first replay fails is
     _GRAPHS[key] = graph             # not kept

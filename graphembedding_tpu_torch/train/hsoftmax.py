@@ -20,6 +20,13 @@ scatter-adds both gradients with the per-row update cap (K4 or K2 by
 JAX package's einsums ask: `hs_block_chunk` sets torch's float32 matmul
 precision to "highest" (no TF32) while it runs.
 
+The cap takes one of the JAX package's two forms (`HSTrainer(cap_mode=)`,
+picked by `train.skipgram.sparse_cap_for`: the sparse form from 2^16 nodes
+under 'auto'): dense, the gradients summed into [V, D] and [n_inner, D]
+buffers that are scaled and added to the whole tables; or sparse, each
+contribution scaled by its row's cap and scattered straight into the
+tables, with no table-sized buffer (`sparse_capped_update`).
+
 The window draws of a chunk (`eff`) are an input of `hs_block_chunk`, so a
 test can hand it the JAX package's draws; `HSTrainer.fit` makes them with
 a `torch.Generator`, and checkpoints, resumes and logs metrics as
@@ -28,13 +35,15 @@ CUDA graph (`train.chunk_graph`), captured under the same full-float32
 setting; on the CPU, or through the plain versions, they run one by one.
 
 `HSTrainer(mesh=, sync_every=)` trains over a mesh
-(`parallel/hsoftmax.py`). Not ported: the sparse cap form (the dense form
-computes the same update at any V).
+(`parallel/hsoftmax.py`), always in the dense form: the JAX package's
+`sharded_hs_chunk` takes no `sparse_cap` either.
+
+`build_huffman` is the JAX package's tree, bit for bit, built by a
+two-queue merge after one sort and filled level by level with numpy, in
+place of the JAX function's heap and per-node Python lists.
 """
 
 from __future__ import annotations
-
-import heapq
 
 import numpy as np
 import torch
@@ -50,6 +59,7 @@ from graphembedding_tpu_torch.train.skipgram import (
     fit_block_walks,
     keep_per_token,
     prepare_epoch,
+    sparse_cap_for,
     step_lrs,
     window_draws,
     window_geometry,
@@ -74,47 +84,77 @@ def build_huffman(counts: np.ndarray):
     """Huffman tree over node frequencies -> (points, codes, depth).
 
     points[v, t]: inner-node ids (0..V-2) on the path root -> leaf v, -1
-    padded; codes[v, t]: 0/1 branch codes aligned with points. The heap
-    holds (count, id) entries, so equal counts break on the node id, as
-    word2vec's `create_binary_tree` does; a zero count weighs 1e-9.
+    padded; codes[v, t]: 0/1 branch codes aligned with points (0 for the
+    first of a merge's two nodes). The JAX package's heap pops (count, id)
+    entries, so equal counts break on the node id, as word2vec's
+    `create_binary_tree` does; a zero count weighs 1e-9.
+
+    The same tree, bit for bit, by the two-queue merge: the leaves sorted
+    stably by (count, id), the inner nodes in the order they are made. The
+    merged counts never decrease (float addition is monotone) and inner ids
+    grow in that order and exceed every leaf id, so the smaller head of the
+    two queues, the leaf on a tie, is the heap's pop; each merge adds the
+    same two floats. The paths are then built level by level with numpy.
     """
     V = counts.shape[0]
     if V == 1:
         return (np.full((1, 1), -1, np.int32),
                 np.zeros((1, 1), np.float32), 1)
-    heap = [(float(max(c, 1e-9)), i, None, None) for i, c in
-            enumerate(counts)]
-    heapq.heapify(heap)
-    next_inner = 0
-    nodes = {}
-    while len(heap) > 1:
-        a = heapq.heappop(heap)
-        b = heapq.heappop(heap)
-        nid = V + next_inner
-        next_inner += 1
-        nodes[nid] = (a[1], b[1])
-        heapq.heappush(heap, (a[0] + b[0], nid, a[1], b[1]))
+    weight = np.maximum(np.asarray(counts, np.float64), 1e-9)
+    order = np.argsort(weight, kind="stable")
+    # each queue ends in +inf: an empty queue never wins (the inner one
+    # holds the k nodes made so far, the rest still +inf)
+    leaf_w = weight[order].tolist() + [float("inf")]
+    leaf_id = order.tolist()
+    n_inner = V - 1
+    inner_w = [float("inf")] * n_inner
+    first, second = [0] * n_inner, [0] * n_inner  # node ids of a merge
+    i = j = 0  # heads of the leaf and inner queues
+    for k in range(n_inner):
+        a, b = leaf_w[i], inner_w[j]
+        if a <= b:
+            w, first[k] = a, leaf_id[i]
+            i += 1
+        else:
+            w, first[k] = b, V + j
+            j += 1
+        a, b = leaf_w[i], inner_w[j]
+        if a <= b:
+            inner_w[k], second[k] = w + a, leaf_id[i]
+            i += 1
+        else:
+            inner_w[k], second[k] = w + b, V + j
+            j += 1
 
-    # walk the tree from the root, collecting each leaf's path
-    points = [[] for _ in range(V)]
-    codes = [[] for _ in range(V)]
-    stack = [(heap[0][1], [], [])]
-    while stack:
-        nid, pth, cds = stack.pop()
-        if nid < V:
-            points[nid] = pth
-            codes[nid] = cds
-            continue
-        left, right = nodes[nid]
-        stack.append((left, pth + [nid - V], cds + [0]))
-        stack.append((right, pth + [nid - V], cds + [1]))
-
-    depth = max(1, max(len(p) for p in points))
+    children = np.stack([np.asarray(first, np.int64),
+                         np.asarray(second, np.int64)], 1)
+    # level by level from the root (the last merge), siblings side by side:
+    # each node's path (inner ids) and codes, its parent's row and one
+    # column more; a leaf's row is its path
+    done = []
+    nodes = np.array([V + n_inner - 1])
+    pts = np.zeros((1, 0), np.int32)
+    cds = np.zeros((1, 0), np.int8)
+    while nodes.size:
+        leaf = nodes < V
+        done.append((nodes[leaf], pts[leaf], cds[leaf]))
+        at = np.flatnonzero(~leaf)
+        inner = nodes[at] - V
+        nodes = children[inner].reshape(-1)
+        rows, d = np.repeat(at, 2), pts.shape[1]
+        pts_next = np.empty((rows.size, d + 1), np.int32)
+        pts_next[:, :d] = pts[rows]
+        pts_next[:, d] = np.repeat(inner, 2)
+        cds_next = np.empty((rows.size, d + 1), np.int8)
+        cds_next[:, :d] = cds[rows]
+        cds_next[:, d] = np.arange(rows.size) % 2  # the second child: 1
+        pts, cds = pts_next, cds_next
+    depth = max(1, max(p.shape[1] for _, p, _ in done))
     P = np.full((V, depth), -1, np.int32)
     C = np.zeros((V, depth), np.float32)
-    for v in range(V):
-        P[v, : len(points[v])] = points[v]
-        C[v, : len(codes[v])] = codes[v]
+    for ids, p, c in done:
+        P[ids, :p.shape[1]] = p
+        C[ids, :p.shape[1]] = c
     return P, C, depth
 
 
@@ -123,10 +163,34 @@ def build_huffman(counts: np.ndarray):
 KERNELS, PLAIN = ROW_KERNELS, ROW_PLAIN
 
 
+def sparse_capped_update(w_in, w_tree, tok, tree_ids, d_yin, d_tree, occ_t,
+                         occ_r, lr, update_cap, ops=KERNELS):
+    """The sparse form of the cap (the JAX package's `sparse_cap` step,
+    `graphembedding_tpu/train/hsoftmax.py:207-226`); updates w_in [V, D]
+    and w_tree [n_inner, D] in place and builds no table-sized buffer:
+    each token's and tree row's scale min(1, cap / max(occupancy, 1)) is
+    gathered back from its row of occ_t [V] / occ_r [n_inner], and the
+    pre-scaled rows lr * grad * scale go straight into the tables by
+    `ops.scatter_add` (K4 up to `ops.rows.SMALL_V_ROWS` rows, else K2).
+    tok [N] and tree_ids [N * T] are the scatters' ids, -1 where dropped
+    (pads, whose gradient rows are zero). The scatter adds each row into
+    the table in index order, where the dense form sums a row's rows first
+    and adds once: the two forms agree to float32 rounding, not bit for
+    bit."""
+    D = w_in.shape[1]
+    tok_scale = (update_cap / occ_t[tok.clamp(min=0)].clamp(min=1.0)).clamp(
+        max=1.0)
+    tree_scale = (update_cap / occ_r[tree_ids.clamp(min=0)].clamp(
+        min=1.0)).clamp(max=1.0)
+    ops.scatter_add(w_in, tok, lr * d_yin.reshape(-1, D) * tok_scale[:, None])
+    ops.scatter_add(w_tree, tree_ids,
+                    lr * d_tree.reshape(-1, D) * tree_scale[:, None])
+
+
 def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
-            update_cap, ops=KERNELS, reduce=None):
-    """One HS step with the dense update cap; updates w_in [V, D] and
-    w_tree [n_inner, D] in place.
+            update_cap, sparse_cap=False, ops=KERNELS, reduce=None):
+    """One HS step, its cap dense or sparse (`sparse_capped_update`);
+    updates w_in [V, D] and w_tree [n_inner, D] in place.
 
     tok [G, PL] token ids (-1 pads), eff_b [G, PL] window draws, points /
     codes [V, T] the tree paths, lr a float or a 0-d float32 tensor of the
@@ -175,18 +239,23 @@ def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
     occ_r = torch.zeros(w_tree.shape[0], dtype=torch.float32,
                         device=w_in.device)
     occ_r.index_add_(0, pts_safe.reshape(-1).long(), tweight)
-    tbuf = ops.scatter_add(
-        torch.zeros((V, D), dtype=torch.float32, device=w_in.device),
-        tok.reshape(-1), d_yin.reshape(-1, D))
-    rbuf = ops.scatter_add(
-        torch.zeros((w_tree.shape[0], D), dtype=torch.float32,
-                    device=w_in.device),
-        torch.where(pts_ok, pts, -1).reshape(-1), d_tree.reshape(-1, D))
-    tok_scale = (update_cap / occ_t.clamp(min=1.0)).clamp(max=1.0)
-    tree_scale = (update_cap / occ_r.clamp(min=1.0)).clamp(max=1.0)
-    # in place: the JAX function donates the tables
-    w_in.add_(lr * tbuf * tok_scale[:, None])
-    w_tree.add_(lr * rbuf * tree_scale[:, None])
+    tree_ids = torch.where(pts_ok, pts, -1).reshape(-1)
+    if sparse_cap:
+        sparse_capped_update(w_in, w_tree, tok.reshape(-1), tree_ids, d_yin,
+                             d_tree, occ_t, occ_r, lr, update_cap, ops)
+    else:
+        tbuf = ops.scatter_add(
+            torch.zeros((V, D), dtype=torch.float32, device=w_in.device),
+            tok.reshape(-1), d_yin.reshape(-1, D))
+        rbuf = ops.scatter_add(
+            torch.zeros((w_tree.shape[0], D), dtype=torch.float32,
+                        device=w_in.device),
+            tree_ids, d_tree.reshape(-1, D))
+        tok_scale = (update_cap / occ_t.clamp(min=1.0)).clamp(max=1.0)
+        tree_scale = (update_cap / occ_r.clamp(min=1.0)).clamp(max=1.0)
+        # in place: the JAX function donates the tables
+        w_in.add_(lr * tbuf * tok_scale[:, None])
+        w_tree.add_(lr * rbuf * tree_scale[:, None])
 
     sgn = 2.0 * label.reshape(G, 1, N) - 1.0
     ll = F.logsigmoid(sgn * logits)
@@ -194,24 +263,25 @@ def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
     return -(ll * gate_n).sum() / pairs.clamp(min=1.0), pairs
 
 
-def _chunk_step(b, s, ops, *, update_cap):
+def _chunk_step(b, s, ops, *, update_cap, sparse_cap):
     """Step s of a chunk on its buffers (`chunk_graph.run_chunk`)."""
     return hs_step(b["w_in"], b["w_tree"], b["tokens"][s], b["eff"][s],
                    b["points"], b["codes"], b["lrs"][s],
                    window_ok=b["window_ok"], dm=b["dm"],
-                   update_cap=update_cap, ops=ops)
+                   update_cap=update_cap, sparse_cap=sparse_cap, ops=ops)
 
 
 def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
                    t0, total_steps, *, block_walks, window, update_cap=8.0,
-                   ops=KERNELS):
+                   sparse_cap=False, ops=KERNELS):
     """S = eff.shape[0] HS steps over consecutive walk blocks.
 
     Step t trains on walks [((t0 + t) % n_blocks) * Bw : + Bw] with
     learning rate max(min_alpha, alpha * (1 - (t0 + t) / total_steps)),
     computed in float32 as the JAX package does. `eff` [S, G, PL] holds
-    the window draws in {1..window}. Updates w_in and w_tree in place and
-    returns (w_in, w_tree, losses [S], pairs [S]).
+    the window draws in {1..window}. `sparse_cap` picks the cap's form
+    (`hs_step`). Updates w_in and w_tree in place and returns (w_in,
+    w_tree, losses [S], pairs [S]).
 
     On a card the S steps through the kernels replay one captured CUDA
     graph (`chunk_graph.run_chunk`); on the CPU, or through the plain
@@ -231,7 +301,8 @@ def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
     with f32_matmul():
         losses, pairs = run_chunk(
             _chunk_step, S, {"w_in": w_in, "w_tree": w_tree}, inputs,
-            ops=ops, plain=PLAIN, consts={"update_cap": float(update_cap)})
+            ops=ops, plain=PLAIN, consts={"update_cap": float(update_cap),
+                                          "sparse_cap": bool(sparse_cap)})
     return w_in, w_tree, losses, pairs
 
 
@@ -239,11 +310,18 @@ class HSTrainer:
     """Hierarchical-softmax skip-gram fit (reference hs=1 semantics) over
     a walk corpus on the corpus' device, or over a `parallel.mesh.Mesh`
     (`mesh=`: data- and tensor-parallel chunks, `parallel/hsoftmax.py`,
-    the replicas synced every `sync_every` steps)."""
+    the replicas synced every `sync_every` steps).
+
+    cap_mode: 'dense' | 'sparse' | 'auto', the form of the update cap on
+    one device (`train.skipgram.sparse_cap_for`: 'auto' takes the sparse
+    form from `SPARSE_CAP_MIN_NODES` = 2^16 nodes, the JAX rule). A mesh
+    fit trains the dense form whatever cap_mode says, as the JAX package's
+    does."""
 
     def __init__(self, embed_size=128, window=5, epochs=5, block_walks=504,
                  alpha=0.025, min_alpha=1e-4, chunk_steps=64, update_cap=8.0,
-                 sample=1e-3, seed=0, mesh=None, sync_every=None):
+                 sample=1e-3, seed=0, mesh=None, sync_every=None,
+                 cap_mode="auto"):
         self.embed_size = embed_size
         self.window = window
         self.epochs = epochs
@@ -260,6 +338,7 @@ class HSTrainer:
             check_mesh(mesh)
         self.mesh = mesh
         self.sync_every = sync_every
+        self.cap_mode = cap_mode
         self.trained_pairs_ = 0.0
 
     def _mesh_block_walks(self, NW, L, n):
@@ -311,6 +390,7 @@ class HSTrainer:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         NW, L = walks.shape
+        sparse_cap = sparse_cap_for(self.cap_mode, num_nodes)
         if mesh is None:
             # the JAX HSTrainer's block: no upscaling for large corpora
             bw = fit_block_walks(NW, L, self.block_walks)
@@ -382,7 +462,7 @@ class HSTrainer:
                 if mesh is None:
                     _, _, lc, pc = hs_block_chunk(
                         *args, block_walks=bw, window=W,
-                        update_cap=self.update_cap)
+                        update_cap=self.update_cap, sparse_cap=sparse_cap)
                 else:
                     _, _, lc, pc = sharded_hs_chunk(
                         *args, mesh=mesh, block_walks=bw, window=W,

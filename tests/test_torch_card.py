@@ -10,9 +10,9 @@ steps, of the row benchmarks and of Struc2Vec's walk on flight-brazil.
 Tolerances: the gathers (K3, K5) are exact; K1 rtol=2e-4, atol=1e-5
 (split-TF32 products, f32 sums in another order) and the same bits from
 run to run; K2 and K4 are bit-equal to the plain version's sequential sum
-on the CPU and to each other; four SGNS steps (either cap) rtol=1e-4,
-atol=1e-6, four
-LINE steps and four HS steps rtol=1e-5, atol=1e-6 (the plain version on
+on the CPU and to each other; four SGNS steps (either cap) and four HS
+steps with the sparse cap rtol=1e-4, atol=1e-6, four LINE steps and four
+HS steps with the dense cap rtol=1e-5, atol=1e-6 (the plain version on
 the card scatters with atomics); the multilayer walk is bit-identical from
 one seed; a resumed train is bit-identical to an uninterrupted one, and
 `most_similar` on the card gives the numpy path's names (apart from ties)
@@ -674,6 +674,45 @@ def test_hs_step_equals_riding_column_form_on_card(cuda):
         assert torch.equal(x, y)
     assert (outs[0][1] - w_tree).abs().max() > 1e-4
 
+@pytest.mark.parametrize("V", [2405, 200_000])
+def test_four_sparse_hs_steps_match_plain(cuda, V):
+    """Four HS steps with the sparse cap (`hs.sparse_capped_update`: the
+    pre-scaled rows scattered into the live tables) at the DeepWalk hs=1
+    Wiki widths through K3 and K4 (V = 2405, within SMALL_V_ROWS) or K2
+    (V = 200,000, above it) against the plain versions, from the same
+    tables and draws: rtol 1e-4, atol 1e-6 (the sparse form's parity
+    tolerance); two K3 and two scatter launches a step."""
+    D, L, W = 128, 10, 5
+    NW = max(5040, V)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    walks = torch.randint(0, V, (NW, L), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    walks[::7, 6:] = -1  # dead-ended walks
+    walks[:64, 0] = 0  # row 0 beside pads
+    points, codes, _ = hs.build_huffman(sg.corpus_counts(walks, V))
+    points = torch.as_tensor(points, device=cuda)
+    codes = torch.as_tensor(codes, device=cuda)
+    geo = sg.block_geometry(NW, L, 504, 1)
+    eff = sg.window_draws(gen, (4, geo.G, geo.PL), W)
+    w_in = (torch.rand((V, D), generator=gen, device=cuda) - 0.5) / D
+    w_tree = torch.randn((V - 1, D), generator=gen, device=cuda) * 0.05
+    scatter = scatter_add_small if V <= SMALL_V_ROWS else scatter_add_rows
+    before = (gather_rows.launches, scatter.launches)
+    out = [hs.hs_block_chunk(w_in.clone(), w_tree.clone(), walks, points,
+                             codes, eff, 0.025, 1e-4, 0, 1152.0,
+                             block_walks=504, window=W, sparse_cap=True,
+                             ops=ops)
+           for ops in (hs.KERNELS, hs.PLAIN)]
+    torch.cuda.synchronize()
+    assert (gather_rows.launches, scatter.launches) == (
+        before[0] + 8, before[1] + 8)
+    for a, b in zip(out[0][:3], out[1][:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+    assert torch.equal(out[0][3], out[1][3])
+    assert (out[0][1] - w_tree).abs().max() > 1e-4  # it moved
+
+
 def test_multilayer_walks_on_card(cuda):
     """Struc2Vec's walk on flight-brazil's context graph: bit-identical
     from one seed, every hop an edge of some layer or a stay."""
@@ -918,11 +957,12 @@ def sgns_chunks(cuda, sparse_cap=False):
     return run
 
 
-def hs_chunks(cuda, tree):
+def hs_chunks(cuda, tree, sparse_cap=False):
     """DeepWalk hs=1 on Wiki's step (Bw = 504: 381 blocks; the Huffman tree
     of the corpus, [2404, 128]) or a 130-row tree (Struc2Vec's on
     flight-brazil: 131 nodes, 10,480 walks of 10, 20 blocks): two chunks of
-    4 steps, the second wrapping around the blocks."""
+    4 steps, the second wrapping around the blocks; the cap dense or
+    sparse."""
     if tree == "wiki":
         V, walks = wiki_walks(cuda)
     else:
@@ -947,7 +987,7 @@ def hs_chunks(cuda, tree):
         for t0, eff in draws:
             *_, losses, pairs = hs.hs_block_chunk(
                 w_in, w_tree, walks, points, codes, eff, 0.025, 1e-4, t0,
-                1152.0, block_walks=504, window=W)
+                1152.0, block_walks=504, window=W, sparse_cap=sparse_cap)
             out += [losses, pairs]
         return [w_in, w_tree, *out]
     return run
@@ -976,7 +1016,8 @@ def line_chunks(cuda, order):
 
 
 @pytest.mark.parametrize("kind", ["sgns", "sgns sparse", "hs wiki",
-                                  "hs tree", "line second", "line first"])
+                                  "hs wiki sparse", "hs tree", "line second",
+                                  "line first"])
 def test_chunk_graph_equals_the_loop_on_card(cuda, kind, monkeypatch):
     """Two chunks replayed from one captured CUDA graph torch.equal to the
     same chunks launched one by one (the card taken out of
@@ -989,6 +1030,7 @@ def test_chunk_graph_equals_the_loop_on_card(cuda, kind, monkeypatch):
     run = {"sgns": lambda: sgns_chunks(cuda),
            "sgns sparse": lambda: sgns_chunks(cuda, sparse_cap=True),
            "hs wiki": lambda: hs_chunks(cuda, "wiki"),
+           "hs wiki sparse": lambda: hs_chunks(cuda, "wiki", sparse_cap=True),
            "hs tree": lambda: hs_chunks(cuda, "tree"),
            "line second": lambda: line_chunks(cuda, "second"),
            "line first": lambda: line_chunks(cuda, "first")}[kind]()
@@ -1173,6 +1215,41 @@ def test_mesh_chunk_graph_equals_the_loop_on_card(mesh_world1, kind):
     assert got["equal"] == [True, True], got
     assert got["graph_n"] == [got["loop_n"]] * 2, got
     assert (sum(got["loop_n"]) == 0) == kind.startswith("sdne"), got
+
+
+def fresh_mesh_dp_rank(info):
+    """In a spawned NCCL rank of world size 1: the dp chunks of
+    `mesh_chunks` as the first collectives on a new mesh's groups, through
+    a capture (the warm-up step does not sync: the first exchange on the
+    data group would fall inside the capture), then through the loop;
+    (outputs equal, graphs held)."""
+    from graphembedding_tpu_torch.parallel import make_mesh
+    from graphembedding_tpu_torch.train import chunk_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = info.device
+    run = mesh_chunks(dev, "dp", make_mesh((1, 1), device=dev))
+    graphs = run()
+    torch.cuda.synchronize()
+    held = len(chunk_graph.held(dev))
+    cuda = chunk_graph.CAPTURES.pop("cuda")
+    try:
+        loop = run()
+        torch.cuda.synchronize()
+    finally:
+        chunk_graph.CAPTURES["cuda"] = cuda
+    return all(torch.equal(a, b) for a, b in zip(graphs, loop)), held
+
+
+def test_dp_chunk_captures_on_a_fresh_mesh(cuda):
+    """`chunk_graph.join_groups`: a capture whose groups have not
+    exchanged yet (NCCL makes a communicator at its first collective,
+    which a capture refuses) captures and equals the loop."""
+    from graphembedding_tpu_torch.parallel.launch import run_ranks
+
+    [(equal, held)] = run_ranks(fresh_mesh_dp_rank, 1, backend="nccl",
+                                device="cuda:0", timeout_s=300)
+    assert equal and held == 1
 
 
 def sdne_chunks(cuda, mode):

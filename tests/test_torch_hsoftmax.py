@@ -1,11 +1,12 @@
 """The port's hierarchical-softmax trainer against the JAX package's.
 
-`build_huffman` must give the JAX package's arrays bit for bit. Four HS
-steps from the same tables (`interop.hs_tables_from_jax`) and the same
-window draws (made by the JAX rule, `fold_in(key, t0)`) hold rtol 1e-5,
-atol 1e-6 against JAX `hs_block_chunk` on w_in, w_tree and the losses: the
-products and sums run in another order, in float32 on both sides. The
-trainer tests are ports of `tests/test_hsoftmax.py`.
+`build_huffman` must give the JAX package's arrays bit for bit, on
+tie-heavy inputs too. Four HS steps from the same tables
+(`interop.hs_tables_from_jax`) and the same window draws (made by the JAX
+rule, `fold_in(key, t0)`) hold rtol 1e-5, atol 1e-6 against JAX
+`hs_block_chunk` on w_in, w_tree and the losses: the products and sums
+run in another order, in float32 on both sides. The trainer tests are
+ports of `tests/test_hsoftmax.py`.
 """
 
 import jax
@@ -40,6 +41,7 @@ def two_torch_threads():
 
 def _counts(case):
     rng = np.random.default_rng(4)
+    tie = np.random.default_rng(11)
     return {
         "one": np.array([7.0]),
         "two": np.array([3.0, 3.0]),
@@ -48,11 +50,24 @@ def _counts(case):
         "zeros": np.zeros(6),
         "random": rng.integers(0, 50, 300).astype(np.float64),
         "skewed": np.floor(1e4 / np.arange(1, 2406)),
+        # tie-heavy, for the two-queue build: 20,000 counts of 0-2 (runs
+        # of thousands of equal counts and zeros, merged sums tying leaves
+        # again and again), as floats and as integers
+        "small_ints": tie.integers(0, 3, 20_000).astype(np.float64),
+        "int_dtype": tie.integers(0, 3, 20_000),
+        # powers of two only: every merged sum ties some leaf's count
+        "powers": 2.0 ** tie.integers(0, 4, 20_000),
+        # float32 counts with zeros, and counts at and below the 1e-9 floor
+        "float32": np.where(tie.random(20_000) < 0.3, 0, tie.integers(
+            1, 5, 20_000)).astype(np.float32),
+        "below_floor": np.where(tie.random(5_000) < 0.5, 1e-12, 1e-9),
     }[case]
 
 
 @pytest.mark.parametrize("case", ["one", "two", "ties", "all_equal",
-                                  "zeros", "random", "skewed"])
+                                  "zeros", "random", "skewed", "small_ints",
+                                  "int_dtype", "powers", "float32",
+                                  "below_floor"])
 def test_build_huffman_equals_jax(case):
     counts = _counts(case)
     P, C, depth = ths.build_huffman(counts)

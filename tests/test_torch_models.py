@@ -103,11 +103,12 @@ def test_deepwalk_hard_sbm_gate():
 def test_unsupported_options_raise(tmp_path):
     ds = tds.synthetic_wiki(num_nodes=60, num_classes=3, seed=3)
     m = DeepWalk(ds.graph, walk_length=5, num_walks=2, device="cpu")
-    # SGNS's cap_mode= is ported (tests/test_torch_large_v.py); the
-    # block-preserving shuffle and the HS sparse cap are not
-    for kw in ({"shuffle_mode": "block"}, {"hs": 1, "cap_mode": "sparse"}):
-        with pytest.raises(NotImplementedError):
-            m.train(embed_size=8, iter=1, **kw)
+    # cap_mode= is ported for SGNS (tests/test_torch_large_v.py) and, as
+    # in the JAX package, accepted and not passed on with hs=1
+    # (tests/test_torch_hs_sparse.py); the block-preserving shuffle is not
+    with pytest.raises(NotImplementedError):
+        m.train(embed_size=8, iter=1, shuffle_mode="block")
+    m.train(embed_size=8, iter=1, hs=1, cap_mode="sparse")
     # train(mesh=) is ported (tests/test_torch_parallel_models.py) and takes
     # a parallel.mesh.Mesh only
     for kw in ({"mesh": object()}, {"hs": 1, "mesh": object()}):
