@@ -20,7 +20,8 @@ Phases, one or more lines each:
   5. main path: load_dataset('wiki') -> DeepWalk(walk_length=10,
      num_walks=80, device='cuda') -> train(embed_size=128, window_size=5,
      iter=3) -> get_embeddings -> Classifier (0.8 split, seed 0); checks
-     that every kernel launched and micro-F1 >= 0.93;
+     that every kernel launched, the corpus by one launch of K6, and
+     micro-F1 >= 0.93;
   6. K4 (small-V row scatter-add) against its plain version, K2 and a
      bare `index_add_` (in turns) at the shapes of the LINE-on-Wiki step:
      1,024 rows into emb and 6,144 into ctx, V = 2405, C = 128;
@@ -37,15 +38,16 @@ Phases, one or more lines each:
      micro-F1 >= 0.70;
  11. Node2Vec path: load_dataset('wiki') -> Node2Vec(walk_length=10,
      num_walks=80, p=0.25, q=4, device='cuda') -> train(embed_size=128,
-     window_size=5, iter=3) -> get_embeddings -> Classifier; checks that
-     the exact sampler was chosen, that K1, K2 and K3 launched, and
-     micro-F1 >= 0.90; prints walk and train seconds and rates, and the
-     walks' share of the two from a warm walk (the graph's views built)
-     against a warm train, each the faster of two;
+     window_size=5, iter=3) -> get_embeddings -> Classifier; checks that the
+     exact sampler was chosen, the corpus by one launch of K7, that K1, K2 and
+     K3 launched, and micro-F1 >= 0.90; prints walk and train seconds and
+     rates, and the walks' share of the two from a warm walk (the graph's views
+     built) against a warm train, each the faster of two;
  12. walk modes on the card: simulate_walks on the Wiki graph by the
      exact sampler, dense and CSR rejection and weighted walks, each on a
      fresh copy of the graph so that its cold run builds the views it
-     reads (every hop an edge, two runs from one seed bit-identical, cold
+     reads (one launch of its kernel, K7, K8 or K6 by alias, a corpus;
+     every hop an edge, two runs from one seed bit-identical, cold
      and warm seconds, walked edges/s, the device's busy time in one warm
      run by torch.profiler), then exact against dense rejection on a
      512-out-regular graph of 20,000 nodes (p = 0.25, q = 4, one walk of
@@ -68,15 +70,16 @@ Phases, one or more lines each:
      time and busy share of one warm train (torch.profiler);
  15. Struc2Vec path: load_dataset('flight-brazil') -> Struc2Vec(
      walk_length=10, num_walks=80, workers=4, temp_path=<a temporary
-     directory>, device='cuda') -> train(embed_size=128, window_size=5,
-     iter=5) (hs='auto' -> hs=1) -> get_embeddings -> Classifier; checks
-     the HS route, K3 and K4 launched 640 times each, every emitted hop an
-     edge of a layer of the context graph or a stay at a vertex with no
-     edge in some layer, micro-F1 >= 0.80, and that a second model with
-     reuse=True loads the cache and walks the same corpus from the same
-     seed; prints context-graph, layer-CSR, cold and warm walk and train
-     seconds, K, E_max, the walk's device events, and the device time and
-     busy share of one warm train (torch.profiler).
+     directory>, device='cuda') -> train(embed_size=128, window_size=5, iter=5)
+     (hs='auto' -> hs=1) -> get_embeddings -> Classifier; checks the HS route,
+     K3 and K4 launched 640 times each, every emitted hop an edge of a layer of
+     the context graph or a stay at a vertex with no edge in some layer,
+     micro-F1 >= 0.80, and that a second model with reuse=True loads the cache
+     and walks the same corpus from the same seed, each model's corpus one
+     launch of K9 (a walk of at most 64 device events); prints context-graph,
+     layer-CSR, cold and warm walk and train seconds, K, E_max, the walk's
+     device events, and the device time and busy share of one warm train
+     (torch.profiler).
 
  16. SDNE parity, card against CPU: on the Wiki graph with hidden [256,
      128], three full-batch steps (train(batch_size=3000, epochs=3)),
@@ -166,22 +169,21 @@ trains run each chunk of steps as one CUDA graph.
      rank) and resumed in the same ranks: tables torch.equal to phase 25's
      uninterrupted fit, and the resumed run's launches = the one remaining
      chunk's steps x the per-step counts.
- 27. the distributed walks (`parallel/walks.py`) at world size 1 over NCCL
-     (one spawned rank on the card): the all-gather engine at slack 1
-     torch.equal to `ops.walk.uniform_walks` from a generator in the same
-     state, on Wiki with a self-loop at each of its 74 vertices without
-     out-edges (no walk stops, so no slot is compacted away); every kind
-     on Wiki (uniform, weighted, batched with hop_batch 4, a2a uniform and
+ 27. the distributed walks (`parallel/walks.py`) at world size 1 over NCCL (one
+     spawned rank on the card): the all-gather engine at slack 1 torch.equal to
+     `ops.walk.uniform_walks_plain` (the lockstep walk) from a generator in the
+     same state, on Wiki with a self-loop at each of its 74 vertices without
+     out-edges (no walk stops, so no slot is compacted away); every kind on
+     Wiki (uniform, weighted, batched with hop_batch 4, a2a uniform and
      weighted, node2vec exact and rejection at p = 0.25, q = 4) and on
-     flight-brazil's Struc2Vec layers (multilayer, multilayer a2a), 80
-     walks of 10 a node, each with overflow 0, every
-     hop an edge (of a layer, or a stay), two runs from one seed
-     torch.equal, warm walked edges/s (rounds and crossed rows where the
-     engine counts them) beside the one-card sampler's; DeepWalk(G,
-     mesh=m).train(embed_size=128, window_size=5, iter=3), the
-     constructor's mesh in rowshard mode (micro-F1 >= its gate, launches
-     as in phase 24); at V = 100,000 (phase 18's graph) one walk of 10 a
-     node by the all-gather engine, the a2a engine and `uniform_walks`;
+     flight-brazil's Struc2Vec layers (multilayer, multilayer a2a), 80 walks of
+     10 a node, each with overflow 0, every hop an edge (of a layer, or a
+     stay), two runs from one seed torch.equal, warm walked edges/s (rounds and
+     crossed rows where the engine counts them) beside the one-card sampler's;
+     DeepWalk(G, mesh=m).train(embed_size=128, window_size=5, iter=3), the
+     constructor's mesh in rowshard mode (micro-F1 >= its gate, launches as in
+     phase 24); at V = 100,000 (phase 18's graph) one walk of 10 a node by the
+     all-gather engine, the a2a engine and `uniform_walks`;
  28. the same at world size 2 over gloo (both ranks on the card): every
      kind with overflow 0 at slack 4; the a2a engine's corpus through the
      ragged exchange torch.equal to the dense frame's (the JAX package's)
@@ -213,8 +215,10 @@ Phases 27-28 run none of K1-K5 in the walks; the trains launch them.
      -> DeepWalk(walk_length=10, num_walks=5, device='cuda') ->
      train(embed_size=128, window_size=5, iter=1) with cap_mode 'auto'
      (the sparse cap at this V) and then 'dense', each cold (its chunk
-     graphs captured) and warm, counts from 0 before the walks: K1, K2 and
-     K3 launched, embeddings finite, the loss falling; build s, walked
+     graphs captured) and warm, counts from 0 before the walks: the corpus
+     one launch of K6, then K6 at this corpus as in phase 33 (its record
+     `uniform_walks[V=1M]`); K1, K2 and K3 launched, embeddings finite,
+     the loss falling; build s, walked
      edges/s cold and warm (every hop an edge), train s and trained
      pairs/s, the device time and busy share of a warm train
      (torch.profiler), reserved memory after each train and after a
@@ -250,6 +254,33 @@ Phases 27-28 run none of K1-K5 in the walks; the trains launch them.
 World size 2 on one card measures correctness and the exchanges' cost, not
 scaling: both ranks share the card, and gloo moves every exchange through
 host memory.
+ 33. (run after phase 12) the walk kernels of csrc/walk.cu, each one
+     launch a corpus, replacing the JAX package's lockstep `lax.scan`s (no
+     pallas_call): K6 (first order, uniform and by alias), K7 (exact
+     (p,q)), K8 (rejection (p,q): the envelope with CSR membership, the
+     envelope with dense membership and uniform row slots, the upper bound
+     with CSR membership) on Wiki's corpus (80 walks of 10 a node, p =
+     0.25, q = 4), K9 (the multilayer walk) on flight-brazil's layers (80
+     walks of 10 a node): each on the uniforms its plain version draws
+     (`ops.walk.record_draws`, `draws=`) torch.equal to that version (K7:
+     at most 1e-5 of the hops may differ, counted and explained), one
+     launch from a seed, two runs from one seed bit-identical, every hop an
+     edge (K9: a layer's, or a stay); device ms in turns with the plain
+     version, the bound from the kernel's own corpus (bytes, or for K7 its
+     logarithms and products at the float32 peak) and the chain of L - 1
+     dependent hops (`chain_ms`: one walker's hop measured by K6 on Wiki
+     with self-loops at its dead ends, 1,001 hops against 1, a measured
+     latency and not a figure of the card's); then each kernel's third-hop
+     law from Philox draws on the weighted triangle with a tail (atol
+     0.03).
+In phases 5, 11, 12, 15 and 30 a plain walk given a CUDA tensor fails the
+run (`walks_through_kernels`), and each corpus is counted as one launch of
+its kernel. Each walk kernel record's `launches` is its main path's count
+(`walk_path_launches`): DeepWalk's (phase 5), Node2Vec's (11), the weighted
+and rejection modes on Wiki (12), the two Struc2Vec models (15), DeepWalk
+at V = 1M (30); 0 for the rejection walk's upper-bound form, which no main
+path runs. Phase 27's oracle is the plain uniform walk, whose draws the
+slack-1 engine repeats.
 
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
@@ -259,11 +290,18 @@ fails the run there).
 Bounds: `bound_ms` is the least time the card could take for a kernel's
 work on this run's inputs: the larger of its bytes (each input read once,
 each output written once; for the row kernels only the rows this run's ids
-touch) over 3.35 TB/s of HBM3, and its operations over the card's peak for
-their type (K1: its split-TF32 products, three per useful product, at
-495 TFLOP/s). `library_ms` is one PyTorch call that computes the same
-function (`index_add_` on the in-range ids for K2 and K4, `index_select`
-for K3 and K5; none for K1), which the port never calls.
+touch; for the walk kernels the rows the kernel's corpus leaves, their real
+entries and no padding, and K9's layer tables whole) over 3.35 TB/s of
+HBM3, and its operations over the card's peak for their type (K1: its
+split-TF32 products, three per useful product, at 495 TFLOP/s; the walk
+kernels: float32 operations on the hops the corpus moves and, for K7, the
+real candidates of each row it leaves, a logarithm counted as one, at 67
+TFLOP/s). The chain of dependent hops is not in `bound_ms` (bytes and
+operations only); each walk kernel's line prints its share of the larger
+of the two. `library_ms` is one PyTorch call that computes the
+same function (`index_add_` on the in-range ids for K2 and K4,
+`index_select` for K3 and K5; none for K1 and the walk kernels), which the
+port never calls. The walk kernels' records also carry `chain_ms`.
 """
 
 import contextlib
@@ -613,11 +651,13 @@ def main():
     kernels = (sgns_block_grads, scatter_add_rows, gather_rows)
     for k in kernels:
         k.launches = 0
+    reset_walk_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ds = load_dataset("wiki")
     t1 = time.perf_counter()
-    model = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
+    with walks_through_kernels():
+        model = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     model.train(embed_size=128, window_size=5, iter=3)
@@ -631,6 +671,8 @@ def main():
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} never launched on the main path")
+    check_walk_launches("main path", {"uniform_walks": 1},
+                        keep={"uniform_walks": "uniform_walks"})
     for r in records:
         r["launches"] = launches[r["name"]]
 
@@ -660,6 +702,8 @@ def main():
     for name, phases in (
             ("line_phases", lambda: line_phases(dev, card, records, record)),
             ("node2vec_phases", lambda: node2vec_phases(dev, card)),
+            ("walk_kernel_phase", lambda: walk_kernel_phase(
+                dev, card, records, record)),
             ("hs_phases", lambda: hs_phases(dev, card, records, record)),
             ("struc2vec_phase", lambda: struc2vec_phase(dev, card)),
             ("sdne_phases", lambda: sdne_phases(dev, card)),
@@ -681,6 +725,7 @@ def main():
     if "jax" in sys.modules or "graphembedding_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 
+    walk_path_launches(records)
     print(json.dumps({"kernels": records}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -913,12 +958,14 @@ def node2vec_phases(dev, card):
     kernels = (sgns_block_grads, scatter_add_rows, gather_rows)
     for k in kernels:
         k.launches = 0
+    reset_walk_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ds = load_dataset("wiki")
     t1 = time.perf_counter()
-    model = Node2Vec(ds.graph, walk_length=10, num_walks=80, p=0.25, q=4,
-                     device=dev)
+    with walks_through_kernels():
+        model = Node2Vec(ds.graph, walk_length=10, num_walks=80, p=0.25,
+                         q=4, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     model.train(embed_size=128, window_size=5, iter=3)
@@ -932,6 +979,8 @@ def node2vec_phases(dev, card):
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} never launched on the Node2Vec path")
+    check_walk_launches("Node2Vec path", {"node2vec_walks": 1},
+                        keep={"node2vec_walks": "node2vec_walks"})
     print(f"Node2Vec sampler: {model.sampler} (max out-degree "
           f"{ds.graph.max_degree}) [{card}]", flush=True)
     if model.sampler != "exact":
@@ -992,7 +1041,13 @@ def node2vec_phases(dev, card):
             gen = torch.Generator(device=dev).manual_seed(5)
             return simulate_walks(g, 80, 10, generator=gen, kind=kind,
                                   p=0.25, q=4.0, sampler=sampler)
-        _, cold = timed_walks(run)
+        reset_walk_counts()
+        with walks_through_kernels():
+            _, cold = timed_walks(run)
+        kernel = WALK_KERNEL_OF[sampler or kind]
+        rec = WALK_RECORD_OF.get(sampler or kind)
+        check_walk_launches(f"walks {kind}/{sampler or 'alias'}",
+                            {kernel: 1}, keep=rec and {rec: kernel})
         a, s_a = timed_walks(run)
         b, s_b = timed_walks(run)
         if not torch.equal(a, b):
@@ -1016,7 +1071,11 @@ def node2vec_phases(dev, card):
             gen = torch.Generator(device=dev).manual_seed(7)
             return simulate_walks(g, 1, 10, generator=gen, kind="node2vec",
                                   p=0.25, q=4.0, sampler=sampler)
-        _, cold = timed_walks(run)
+        reset_walk_counts()
+        with walks_through_kernels():
+            _, cold = timed_walks(run)
+        check_walk_launches(f"{d}-regular {sampler}",
+                            {WALK_KERNEL_OF[sampler]: 1})
         walks, warm = min((timed_walks(run) for _ in range(2)),
                           key=lambda r: r[1])
         edges = check_hops(walks, g, f"{d}-regular {sampler}")
@@ -1024,6 +1083,457 @@ def node2vec_phases(dev, card):
               f"nodes [{walks.shape[0]}, {walks.shape[1]}]: cold "
               f"{cold:.4f} s, warm {warm:.4f} s, {edges / warm:.4e} walked "
               f"edges/s; {busy_text(run)} [{card}]", flush=True)
+
+
+# ---- the walk kernels (K6-K9, csrc/walk.cu) ----------------------------
+
+WALK_SOURCE = "graphembedding_tpu_torch/csrc/walk.cu"
+# what each walk kernel replaces: an XLA `lax.scan` of the JAX package
+# (no pallas_call)
+WALK_REPLACES = {
+    "uniform_walks": "graphembedding_tpu/ops/walk.py:84",
+    "weighted_walks": "graphembedding_tpu/ops/walk.py:111",
+    "node2vec_walks": "graphembedding_tpu/ops/walk.py:141",
+    "node2vec_walks_rejection": "graphembedding_tpu/ops/walk.py:248",
+    "multilayer_walks": "graphembedding_tpu/models/struc2vec.py:485",
+}
+# the walk kernel that each kind or (p,q) sampler of simulate_walks runs
+WALK_KERNEL_OF = {"uniform": "uniform_walks", "weighted": "weighted_walks",
+                  "exact": "node2vec_walks",
+                  "rejection_dense": "node2vec_walks_rejection",
+                  "rejection": "node2vec_walks_rejection"}
+# the kernels-line record whose launches phase 12's walk mode on Wiki gives
+# (the exact sampler's record takes phase 11's Node2Vec model instead)
+WALK_RECORD_OF = {"weighted": "weighted_walks",
+                  "rejection_dense": "node2vec_walks_rejection[dense]",
+                  "rejection": "node2vec_walks_rejection[csr]"}
+# K7's hops that may differ from its plain version on shared draws: a
+# score's last bit (logf in the kernel and in torch.log) can flip an
+# argmax between two columns whose scores nearly tie
+EXACT_MAX_DIFF_SHARE = 1e-5
+FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+
+
+def walk_counts():
+    """The wrappers of the walk kernels K6-K9 by name."""
+    from graphembedding_tpu_torch.models import struc2vec as s2v
+    from graphembedding_tpu_torch.ops import walk
+
+    return {**walk.walk_kernels(), "multilayer_walks": s2v.multilayer_walks}
+
+
+def reset_walk_counts():
+    for k in walk_counts().values():
+        k.launches = 0
+
+
+# the launches of each walk kernel record on its main path: record name ->
+# (count, path), kept by `check_walk_launches` and written into the
+# kernels line by `walk_path_launches`
+PATH_WALK_LAUNCHES = {}
+
+
+def check_walk_launches(what, want, keep=None):
+    """Fails unless the walk kernels launched `want` times each (any other
+    never) since `reset_walk_counts`; prints the counts. `keep` maps a
+    kernels-line record to the kernel whose count it takes from this
+    path."""
+    got = {name: k.launches for name, k in walk_counts().items()}
+    print(f"{what} walk kernel launches: {got}", flush=True)
+    if got != {name: want.get(name, 0) for name in got}:
+        fail(f"{what}: walk kernel launches {got}, want {want}")
+    for rec, kernel in (keep or {}).items():
+        PATH_WALK_LAUNCHES[rec] = (got[kernel], what)
+
+
+# the walk kernel records that no main path runs: simulate_walks always
+# passes the weight sums, so its rejection walk is the envelope form
+OFF_PATH_WALKS = {"node2vec_walks_rejection[bound]"}
+
+
+def walk_path_launches(records):
+    """Each walk kernel record's `launches`: its main path's count; 0 for
+    a form that no main path runs (`OFF_PATH_WALKS`)."""
+    for r in records:
+        if r["source"] != WALK_SOURCE:
+            continue
+        name = r["name"]
+        if name in OFF_PATH_WALKS:
+            r["launches"] = 0
+            print(f"kernel {name}: 0 launches, no main path runs this form "
+                  f"(simulate_walks passes the weight sums: the envelope)",
+                  flush=True)
+            continue
+        if name not in PATH_WALK_LAUNCHES:
+            fail(f"kernel {name}: no main path counted its launches")
+        r["launches"], what = PATH_WALK_LAUNCHES[name]
+        print(f"kernel {name}: {r['launches']} launches on the {what}",
+              flush=True)
+
+
+PLAIN_WALKS = (("ops.walk", "uniform_walks_plain"),
+               ("ops.walk", "weighted_walks_plain"),
+               ("ops.walk", "node2vec_walks_plain"),
+               ("ops.walk", "node2vec_walks_rejection_plain"),
+               ("models.struc2vec", "multilayer_walks_plain"))
+
+
+@contextlib.contextmanager
+def walks_through_kernels():
+    """Inside, a plain walk given a CUDA tensor fails the run: every walk
+    path on the card must reach its kernel."""
+    import importlib
+
+    import torch
+
+    saved = []
+    for mod_name, name in PLAIN_WALKS:
+        mod = importlib.import_module(f"graphembedding_tpu_torch.{mod_name}")
+        fn = getattr(mod, name)
+
+        def guard(*args, _fn=fn, _name=name, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kw.values())):
+                fail(f"{_name} ran on CUDA tensors: a walk path on the card "
+                     f"skipped its kernel")
+            return _fn(*args, **kw)
+        saved.append((mod, name, fn))
+        setattr(mod, name, guard)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def hop_latency_ms(dev, g):
+    """Device ms of one hop of one walker's chain of dependent reads: K6
+    with a single walker on g (no vertex without out-edges, so it never
+    stops) for 1,001 hops against 1 (CUDA events, medians), the difference
+    over 1,000. A walk of L can take no less than (L - 1) of these, however
+    many walkers run beside it."""
+    import torch
+
+    from graphembedding_tpu_torch.benchmarks.common import median_ms
+    from graphembedding_tpu_torch.ops.walk import uniform_walks
+
+    dg = g.to(dev)
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def run(length):
+        return median_ms(lambda: uniform_walks(
+            dg.row_ptr, dg.col_idx, dg.degree, one, length=length,
+            generator=gen))
+    return (run(1001) - run(1)) / 1000
+
+
+def visited_rows_work(walks, row_bytes, entry_bytes, entries):
+    """What a walk corpus needs of a graph's tables: `bytes`, each row that
+    a hop leaves read once, `row_bytes` a row plus `entry_bytes` for each
+    of its `entries` (int [V]: the real ones, no padding); the hops that
+    moved (`hops`, `first_hops` of them the first); and the candidates a
+    row-scoring kernel weighs, `entries` summed over the vertices the
+    first hop (`first`) and the later ones (`rest`) leave."""
+    import torch
+
+    cur = walks[:, :-1].long()
+    live = cur >= 0
+    deg = torch.where(live, entries.long()[cur.clamp(min=0)], 0)
+    visited = cur[live].unique()
+    return dict(bytes=(visited.numel() * row_bytes
+                       + int(entries[visited].long().sum()) * entry_bytes),
+                hops=int(walks[:, 1:].ge(0).sum()),
+                first_hops=int(walks[:, 1].ge(0).sum()),
+                first=int(deg[:, 0].sum()), rest=int(deg[:, 1:].sum()))
+
+
+def walk_kernel_case(name, kernel, plain, shapes, check, work, dev, card,
+                     records, record, chain_ms, max_diff_share=0.0,
+                     timing=(3, 2)):
+    """One walk kernel at one shape: its corpus on shared draws against the
+    plain version's (torch.equal, or at most max_diff_share of the hops
+    differing, counted and explained), one launch a corpus from a seed,
+    two runs from one seed bit-identical, `check` (every hop an edge) on
+    the kernel's corpus, device ms in turns with the plain version, and
+    the record (bound: the bytes `work(corpus)` reads plus the corpus
+    written, or its operations at the float32 peak, whichever is larger,
+    from the kernel's Philox corpus; `chain_ms` beside it). The record's
+    launches are its main path's (`walk_path_launches`)."""
+    import torch
+
+    from graphembedding_tpu_torch.benchmarks.common import turns_ms
+    from graphembedding_tpu_torch.ops import walk
+
+    kern = walk_counts()[name.split("[")[0]]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    draws = walk.record_draws(shapes, gen)
+    got, want = kernel(draws=draws), plain(draws=draws)
+    torch.cuda.synchronize()
+    del draws
+    hops = got[:, 1:].numel()
+    diff = int((got[:, 1:] != want[:, 1:]).sum())
+    err = float((got.long() - want.long()).abs().max()) if diff else 0.0
+    note = "torch.equal to the plain version on shared draws"
+    if diff:
+        rows = int((got != want).any(1).sum())
+        note = (f"{diff} of {hops} hops ({diff / hops:.2e}) in {rows} "
+                f"walks differ from the plain version on shared draws: the "
+                f"first differing hop of a walk is a Gumbel argmax between "
+                f"scores that tie to the last bit (logf in the kernel and in "
+                f"torch.log), the rest of the walk follows it")
+        if diff > max_diff_share * hops:
+            fail(f"{name}: {note}; at most {max_diff_share} allowed")
+    del want
+    kern.launches = 0
+    a = kernel(generator=torch.Generator(device=dev).manual_seed(12))
+    launches = kern.launches
+    b = kernel(generator=torch.Generator(device=dev).manual_seed(12))
+    torch.cuda.synchronize()
+    if launches != 1:
+        fail(f"{name}: {launches} launches for one corpus, want 1")
+    if not torch.equal(a, b):
+        fail(f"{name}: two runs from one seed differ")
+    checked = check(a, name)
+    g1 = torch.Generator(device=dev).manual_seed(13)
+    g2 = torch.Generator(device=dev).manual_seed(13)
+    ms, plain_ms = turns_ms(lambda: kernel(generator=g1),
+                            lambda: plain(generator=g2), rounds=timing[0],
+                            reps=timing[1])
+    in_bytes, ops = work(a)
+    byte_ms = (in_bytes + nbytes(a)) / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / FP32_FLOP_PER_S * 1e3
+    bound = max(byte_ms, op_ms)
+    record(name, WALK_SOURCE, WALK_REPLACES[name.split("[")[0]], err, ms,
+           plain_ms, bound, None,
+           "operations" if op_ms > byte_ms else "bytes")
+    records[-1].update(chain_ms=chain_ms)
+    print(f"  {name} [{a.shape[0]}, {a.shape[1]}]: {note}; one launch a "
+          f"corpus; bit-identical from one seed; {checked}; {ms:.4f} ms "
+          f"against plain {plain_ms:.4f} ms in turns ({plain_ms / ms:.1f}x), "
+          f"bound {bound:.4f} ms (bytes {byte_ms:.4f} of {in_bytes} B "
+          f"read, operations {op_ms:.4f} of {ops}), chain of "
+          f"{a.shape[1] - 1} hops {chain_ms:.4f} ms, so "
+          f"{max(bound, chain_ms) / ms:.2%} of the larger "
+          f"({'chain' if chain_ms > bound else 'bound'}); "
+          f"{int(a[:, 1:].ge(0).sum()) / ms * 1e3:.4e} walked edges/s "
+          f"[{card}]", flush=True)
+    return a
+
+
+def walk_law(name, kernel_on, dev):
+    """The third hop from 0 through 1 on the weighted triangle with a tail
+    (kernel_on(graph, starts, length) -> corpus), from Philox draws:
+    returns (freq of 0, freq of 2, walkers through 1)."""
+    import torch
+
+    from graphembedding_tpu_torch import Graph
+
+    unweighted = name == "node2vec_walks_rejection[dense]"
+    w = None if unweighted else np.array([3.0, 1.0, 2.0, 0.5], np.float32)
+    g = Graph(np.array([0, 1, 2, 2]), np.array([1, 2, 0, 3]), w,
+              directed=False)
+    starts = torch.zeros(30000, dtype=torch.int64, device=dev)
+    walks = kernel_on(g, starts, 3).cpu().numpy()
+    sel = walks[(walks[:, 0] == 0) & (walks[:, 1] == 1)]
+    freq = np.bincount(sel[:, 2], minlength=4)[[0, 2]] / max(len(sel), 1)
+    return freq, len(sel)
+
+
+def walk_kernel_phase(dev, card, records, record):
+    """Phase 33: the walk kernels K6-K9 at the main paths' shapes (module
+    docstring)."""
+    import torch
+
+    from graphembedding_tpu_torch import Graph
+    from graphembedding_tpu_torch.data import load_dataset
+    from graphembedding_tpu_torch.models import struc2vec as s2v
+    from graphembedding_tpu_torch.ops import walk
+
+    ds = load_dataset("wiki")
+    g, V, L, p, q = ds.graph, ds.graph.num_nodes, 10, 0.25, 4.0
+    src, dst, _ = g.edges()
+    dead = np.flatnonzero(g.degree == 0)
+    loops = Graph(np.concatenate([src, dead]), np.concatenate([dst, dead]),
+                  num_nodes=V)
+    hop_ms = hop_latency_ms(dev, loops)
+    chain_ms = (L - 1) * hop_ms
+    print(f"walk kernels: one hop of one walker's dependent chain "
+          f"{hop_ms * 1e3:.3f} us on Wiki (K6, 1,001 hops against 1), so a "
+          f"walk of {L} takes at least {chain_ms:.4f} ms [{card}]",
+          flush=True)
+    dg = g.to(dev)
+    B = 80 * V
+    starts = torch.arange(V, dtype=torch.int64, device=dev).repeat(80)
+    accept, alias = g.alias_tables(dev)
+    nbr, nbr_w = g.neighbor_matrix(dev)
+    wsum = g.weight_sums(dev)
+    D = nbr.shape[1]
+    csr = (dg.row_ptr, dg.col_idx, dg.degree)
+
+    def edges_of(w, what):
+        return f"{check_hops(w, g, what)} hops, every one an edge"
+
+    def case(name, fn, plain_fn, shapes, work, **kw):
+        walk_kernel_case(
+            name, functools.partial(fn, length=L),
+            functools.partial(plain_fn, length=L), shapes, edges_of,
+            work, dev, card, records, record, chain_ms, **kw)
+
+    def rows_read(row_bytes, entry_bytes, entries, ops):
+        """work(corpus): the rows it leaves read whole (whatever share of
+        a row its hops draw) and the starts; ops(visited_rows_work)."""
+        def work(a):
+            w = visited_rows_work(a, row_bytes, entry_bytes, entries)
+            return w["bytes"] + nbytes(starts), ops(w)
+        return work
+
+    print(f"walk kernels on Wiki (V={V}, E={g.num_edges}, max degree {D}), "
+          f"{B} walkers of {L}, p={p}, q={q}:", flush=True)
+    # a row: row_ptr and degree; an entry: col_idx (and accept, alias)
+    case("uniform_walks",
+         functools.partial(walk.uniform_walks, *csr, starts),
+         functools.partial(walk.uniform_walks_plain, *csr, starts),
+         walk.uniform_draw_shapes(B, L),
+         rows_read(12, 4, dg.degree, lambda w: w["hops"]), timing=(10, 5))
+    case("weighted_walks",
+         functools.partial(walk.weighted_walks, *csr, accept, alias, starts),
+         functools.partial(walk.weighted_walks_plain, *csr, accept, alias,
+                           starts),
+         walk.weighted_draw_shapes(B, L),
+         rows_read(12, 12, dg.degree, lambda w: 2 * w["hops"]),
+         timing=(10, 5))
+    # only the real columns of cur's padded row: degree, each id and
+    # weight; per candidate the factor (not on the first hop), three
+    # logarithms, an add and a compare
+    case("node2vec_walks",
+         functools.partial(walk.node2vec_walks, dg.degree, nbr, nbr_w,
+                           starts, p, q),
+         functools.partial(walk.node2vec_walks_plain, dg.degree, nbr, nbr_w,
+                           starts, p, q),
+         walk.node2vec_draw_shapes(B, L, D),
+         rows_read(4, 8, nbr.ge(0).sum(1),
+                   lambda w: 5 * w["first"] + 6 * w["rest"]),
+         max_diff_share=EXACT_MAX_DIFF_SHARE)
+    ids = g.neighbor_ids(dev)
+    # a row: row_ptr, degree (and the envelope's wsum); an entry: col_idx,
+    # accept, alias (the dense form's slots come from its resident ids,
+    # the first hop's alias draw left out) and the envelope's edge_weight
+    for form, kw, row_bytes, entry_bytes in (
+            ("csr", dict(edge_weight=dg.edge_weight, wsum=wsum), 16, 16),
+            ("dense", dict(edge_weight=dg.edge_weight, wsum=wsum, nbr=ids,
+                           uniform_rows=True), 16, 12),
+            ("bound", dict(envelope=False), 12, 12)):
+        kw.update(max_degree=max(dg.max_degree, 1))
+        args = (*csr, accept, alias, starts, p, q)
+        # the first hop a weighted draw (slot and coin); every later hop
+        # at least one proposal: its slot, coin and acceptance
+        case(f"node2vec_walks_rejection[{form}]",
+             functools.partial(walk.node2vec_walks_rejection, *args, **kw),
+             functools.partial(walk.node2vec_walks_rejection_plain, *args,
+                               **kw),
+             walk.rejection_draw_shapes(B, L, p, q,
+                                        envelope=form != "bound",
+                                        row_slots=form == "dense"),
+             rows_read(row_bytes, entry_bytes, dg.degree,
+                       lambda w: 2 * w["first_hops"]
+                       + 4 * (w["hops"] - w["first_hops"])))
+
+    # K9 on flight-brazil's layers
+    fl, layers = flight_layers()
+    ly = s2v.layers_to(layers, dev)
+    Vf = fl.graph.num_nodes
+    K, E = ly["col_idx"].shape
+    s_fl = torch.arange(Vf, dtype=torch.int32, device=dev).repeat(80)
+    lay = (ly["row_ptr"], ly["col_idx"], ly["accept"], ly["alias"],
+           ly["gamma"], s_fl)
+
+    def multilayer(fn):
+        return lambda generator=None, draws=None: fn(
+            *lay, generator, 0.3, length=L, draws=draws)
+
+    def layer_hops(w, what):
+        stays = check_layer_hops(w, layers, what)
+        return (f"{w[:, 1:].numel()} hops, every one a layer edge or a "
+                f"stay ({stays} stays)")
+    tables = s2v.layer_tables(ly["row_ptr"], ly["gamma"], E)
+    print(f"walk kernels on flight-brazil's layers (V={Vf}, K={K}, "
+          f"E_max={E}), {80 * Vf} walkers of {L}:", flush=True)
+    # the layer tables whole: a corpus does not say which layer each hop
+    # left from
+    layer_bytes = nbytes(*tables, ly["col_idx"], ly["accept"], ly["alias"],
+                         s_fl)
+    walk_kernel_case(
+        "multilayer_walks", multilayer(s2v.multilayer_walks),
+        multilayer(s2v.multilayer_walks_plain),
+        s2v.multilayer_draw_shapes(80 * Vf, L), layer_hops,
+        lambda a: (layer_bytes, 4 * int(a[:, 1:].ge(0).sum())), dev, card,
+        records, record, chain_ms)
+
+    # the law of each kernel on the weighted triangle with a tail
+    def on_graph(name):
+        def run(tg, st, length):
+            gen = torch.Generator(device=dev).manual_seed(4)
+            tdg = tg.to(dev)
+            c = (tdg.row_ptr, tdg.col_idx, tdg.degree)
+            if name == "uniform_walks":
+                return walk.uniform_walks(*c, st, length=length,
+                                          generator=gen)
+            if name == "weighted_walks":
+                return walk.weighted_walks(*c, *tg.alias_tables(dev), st,
+                                           length=length, generator=gen)
+            if name == "node2vec_walks":
+                return walk.node2vec_walks(tdg.degree,
+                                           *tg.neighbor_matrix(dev), st, p,
+                                           q, length=length, generator=gen)
+            if name == "multilayer_walks":
+                acc, ali = tg.host_alias()
+                one = s2v.layers_to(dict(
+                    row_ptr=tg.row_ptr[None], col_idx=tg.col_idx[None],
+                    accept=acc[None], alias=ali[None],
+                    gamma=np.zeros((1, tg.num_nodes), np.float32)), dev)
+                return s2v.multilayer_walks(
+                    one["row_ptr"], one["col_idx"], one["accept"],
+                    one["alias"], one["gamma"], st, gen, 0.3,
+                    length=length)
+            form = name[len("node2vec_walks_rejection["):-1]
+            kw = dict(max_degree=tdg.max_degree)
+            if form != "bound":
+                kw.update(edge_weight=tdg.edge_weight,
+                          wsum=tg.weight_sums(dev))
+            else:
+                kw.update(envelope=False)
+            if form == "dense":
+                kw.update(nbr=tg.neighbor_ids(dev), uniform_rows=True)
+            return walk.node2vec_walks_rejection(
+                *c, *tg.alias_tables(dev), st, p, q, length=length,
+                generator=gen, **kw)
+        return run
+
+    laws = []
+    for r in records:
+        name = r["name"]
+        if r["source"] != WALK_SOURCE or name.endswith("M]"):
+            continue
+        freq, n = walk_law(name, on_graph(name), dev)
+        target = {"uniform_walks": [1.0, 1.0],
+                  "weighted_walks": [3.0, 1.0],
+                  "multilayer_walks": [3.0, 1.0],
+                  "node2vec_walks_rejection[dense]": [1.0 / p, 1.0]}.get(
+                      name, [3.0 / p, 1.0])
+        target = np.array(target) / sum(target)
+        if n < 2000 or not np.allclose(freq, target, atol=0.03):
+            fail(f"{name}: third hop from 0 through 1 {freq} over {n} "
+                 f"walkers, want {target} (atol 0.03)")
+        laws.append(f"{name} {freq[0]:.4f}/{freq[1]:.4f} (want "
+                    f"{target[0]:.4f}/{target[1]:.4f}, {n} walkers)")
+    print("walk kernels' third-hop law on the triangle with a tail, Philox "
+          "draws, to 0 / to 2: " + "; ".join(laws), flush=True)
 
 
 def hs_scatter_phase(call, V, C, ids, grads, dev, card, record):
@@ -1286,9 +1796,10 @@ def struc2vec_phase(dev, card):
     # the main path, counting launches
     kernels = (gather_rows, scatter_add_small, scatter_add_rows,
                sgns_block_grads)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, walks_through_kernels():
         for k in kernels:
             k.launches = 0
+        reset_walk_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ds = load_dataset("flight-brazil")
@@ -1311,6 +1822,9 @@ def struc2vec_phase(dev, card):
             fail("Struc2Vec: the cached context graph walks another corpus "
                  "from the same seed")
     print(f"Struc2Vec path launches: {launches}", flush=True)
+    check_walk_launches("Struc2Vec path (two models)",
+                        {"multilayer_walks": 2},
+                        keep={"multilayer_walks": "multilayer_walks"})
     steps = model.losses.shape[0]
     want = {"gather_rows": 2 * steps, "scatter_add_small": 2 * steps,
             "scatter_add_rows": 0, "sgns_block_grads": 0}
@@ -1334,6 +1848,10 @@ def struc2vec_phase(dev, card):
     busy = ("not measured" if events is None else
             f"{len(events)} device events, busy "
             f"{sum(us for _, us in events) / 1e3:.4f} ms")
+    # one launch of K9 and the few ops that build its tables and seed,
+    # where the lockstep loop of torch ops ran some 6,460
+    if events is not None and len(events) > 64:
+        fail(f"Struc2Vec walk: {len(events)} device events, want a handful")
     print(f"Struc2Vec walks [{80 * V}, 10]: every hop a layer edge "
           f"({stays} stays); cold {cold:.4f} s, warm {warm:.4f} "
           f"s; one warm walk: {busy} [{card}]", flush=True)
@@ -2180,7 +2698,9 @@ def large_v_phase(dev, card, records, record):
         median_ms, turns_ms)
     from graphembedding_tpu_torch.ops.rows import (
         scatter_add_rows, scatter_add_rows_plain)
-    from graphembedding_tpu_torch.ops.walk import simulate_walks
+    from graphembedding_tpu_torch.ops.walk import (
+        simulate_walks, uniform_draw_shapes, uniform_walks,
+        uniform_walks_plain)
     from graphembedding_tpu_torch.train import chunk_graph
     from graphembedding_tpu_torch.train import skipgram as sg
 
@@ -2202,8 +2722,12 @@ def large_v_phase(dev, card, records, record):
     kernels = kernel_counts()
     for k in kernels.values():
         k.launches = 0
-    model, walk_cold = timed_walks(
-        lambda: DeepWalk(g, walk_length=L, num_walks=5, device=dev))
+    reset_walk_counts()
+    with walks_through_kernels():
+        model, walk_cold = timed_walks(
+            lambda: DeepWalk(g, walk_length=L, num_walks=5, device=dev))
+    check_walk_launches("large V constructor", {"uniform_walks": 1},
+                        keep={"uniform_walks[V=1M]": "uniform_walks"})
 
     def walk():
         gen = torch.Generator(device=dev).manual_seed(model.seed)
@@ -2218,6 +2742,22 @@ def large_v_phase(dev, card, records, record):
           f"cold {walk_cold:.4f} s ({hops / walk_cold:.4e} walked edges/s), "
           f"warm {walk_warm:.4f} s ({hops / walk_warm:.4e} walked edges/s) "
           f"[{card}]", flush=True)
+    # K6 at this corpus against its plain version (phase 33's checks)
+    dg = g.to(dev)
+    csr = (dg.row_ptr, dg.col_idx, dg.degree)
+    starts = torch.arange(V, dtype=torch.int64, device=dev).repeat(5)
+    chain_ms = (L - 1) * hop_latency_ms(dev, g)
+    walk_kernel_case(
+        "uniform_walks[V=1M]",
+        functools.partial(uniform_walks, *csr, starts, length=L),
+        functools.partial(uniform_walks_plain, *csr, starts, length=L),
+        uniform_draw_shapes(5 * V, L),
+        lambda w, what: (f"{hops_on_device(w, g, dev, what)} hops, every "
+                         f"one an edge"),
+        lambda a: (visited_rows_work(a, 12, 4, dg.degree)["bytes"]
+                   + nbytes(starts), int(a[:, 1:].ge(0).sum())),
+        dev, card, records, record, chain_ms, timing=(5, 3))
+    del dg, csr, starts
     g.free_device()
 
     def train(mode):
@@ -3305,7 +3845,8 @@ def mesh_walks_world1_rank(info):
     from graphembedding_tpu_torch.data import load_dataset
     from graphembedding_tpu_torch.data.datasets import synthetic_wiki
     from graphembedding_tpu_torch.graph import Graph
-    from graphembedding_tpu_torch.ops.walk import uniform_walks
+    from graphembedding_tpu_torch.ops.walk import (
+        uniform_walks, uniform_walks_plain)
     from graphembedding_tpu_torch.parallel import make_mesh
     from graphembedding_tpu_torch.parallel.mesh import rank_seed
     from graphembedding_tpu_torch.parallel.walks import DistributedWalker
@@ -3316,10 +3857,11 @@ def mesh_walks_world1_rank(info):
     ds = load_dataset("wiki")
     g = ds.graph
     lines = []
-    # the oracle: at slack 1 the engine draws uniform_walks' uniforms in its
-    # order as long as no walk stops (a stopped walker's slot is compacted
-    # away, and the later walkers move to other slots and draws): Wiki with
-    # a self-loop at each of its vertices without out-edges
+    # the oracle: at slack 1 the engine draws the lockstep walk's uniforms
+    # (`uniform_walks_plain`; the one-card kernel K6 draws from Philox) in
+    # its order as long as no walk stops (a stopped walker's slot is
+    # compacted away, and the later walkers move to other slots and draws):
+    # Wiki with a self-loop at each of its vertices without out-edges
     src, dst, _ = g.edges()
     dead = np.flatnonzero(g.degree == 0)
     loops = Graph(np.concatenate([src, dead]), np.concatenate([dst, dead]),
@@ -3328,13 +3870,14 @@ def mesh_walks_world1_rank(info):
                                   slack=1).run_device(3)
     dl = loops.to(dev)
     gen = torch.Generator(device=dev).manual_seed(rank_seed(3, 0))
-    want = uniform_walks(dl.row_ptr, dl.col_idx, dl.degree, torch.arange(
-        g.num_nodes, device=dev).repeat(80), length=10, generator=gen)
+    want = uniform_walks_plain(dl.row_ptr, dl.col_idx, dl.degree,
+                               torch.arange(g.num_nodes, device=dev).repeat(
+                                   80), length=10, generator=gen)
     if int(ov) or not torch.equal(walks, want):
-        fail("the slack-1 world-1 corpus differs from uniform_walks'")
+        fail("the slack-1 world-1 corpus differs from uniform_walks_plain'")
     lines.append(f"oracle: the all-gather engine at slack 1, world 1 "
-                 f"(NCCL), torch.equal to ops.walk.uniform_walks from the "
-                 f"same generator state ({walks.shape[0]} walks of 10 on "
+                 f"(NCCL), torch.equal to ops.walk.uniform_walks_plain from "
+                 f"the same generator state ({walks.shape[0]} walks of 10 on "
                  f"Wiki with self-loops at its {dead.size} vertices without "
                  f"out-edges)")
     fl, layers = flight_layers()

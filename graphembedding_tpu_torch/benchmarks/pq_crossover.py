@@ -7,6 +7,7 @@ exact sampler (`ops.walk.node2vec_walks`: one Gumbel-max draw over the
 padded neighbor row a hop), by rejection with CSR membership and by
 rejection with dense membership (`node2vec_walks_rejection` with the
 resident id rows and, the graphs being unweighted, uniform slot draws).
+On a card each is one launch of its walk kernel (K7, K8: `csrc/walk.cu`).
 Each time is the best of `--reps` runs after an untimed one, the graph's
 device views built before (host clock, the card synchronized). Prints one
 JSON line a degree, the JAX script's keys, plus the sampler that

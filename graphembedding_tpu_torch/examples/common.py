@@ -126,13 +126,16 @@ def plot_embeddings(embeddings, ds, path):
 
 def report(name, ds, results, t_train, args):
     if args.json:
+        # one write a line: the ranks of a mesh share stdout, and an
+        # unbuffered print writes the newline apart, so two lines could
+        # interleave
         print(json.dumps({
             "model": name,
             "dataset": ds.name,
             "device": args.device,
             "train_s": round(t_train, 2),
             **{k: round(v, 4) for k, v in results.items()},
-        }))
+        }) + "\n", end="", flush=True)
     else:
         print(f"[{name}] {ds.name} on {args.device}: train {t_train:.1f}s  "
               + "  ".join(f"{k}={v:.4f}" for k, v in results.items()))

@@ -52,6 +52,24 @@ SIGNATURES = {
     "ge_scatter_add_small_scratch": [_I, _I],
     # device, table, V, ids, N, W, B, stages, grid, smem, out, stream
     "ge_dma_gather_rows": [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # device, row_ptr, col, degree, accept, alias, E, starts, B, L, draws,
+    # seed, out, stream (accept null: uniform)
+    "ge_walk_first_order": [_I, _P, _P, _P, _P, _P, _I64, _P, _I64, _I, _P,
+                            _P, _P, _P],
+    # device, degree, nbr, nbr_w, D, starts, B, L, inv_p, inv_q, draws,
+    # seed, out, stream
+    "ge_walk_exact_pq": [_I, _P, _P, _P, _I, _P, _I64, _I, _F, _F, _P, _P,
+                         _P, _P],
+    # device, row_ptr, col, degree, accept, alias, E, edge_weight, wsum,
+    # nbr, D, starts, B, L, P, R, flags, a_coef, beta, acc_prev,
+    # acc_shared, acc_other, draws, seed, out, stream
+    "ge_walk_rejection_pq": [_I, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _I,
+                             _P, _I64, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                             _P, _P, _P, _P],
+    # device, deg, first, p_up, can_up, cols, acc, ali, V, K*E, starts, B,
+    # L, max_moves, stay_prob, draws, seed, out, stream
+    "ge_walk_multilayer": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P,
+                           _I64, _I, _I, _F, _P, _P, _P, _P],
     "ge_error_string": [_I],
     # device: once a process and device, before a capture (`prepare`)
     "ge_prepare_sgns": [_I],

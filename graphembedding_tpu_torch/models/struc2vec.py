@@ -8,7 +8,9 @@ edges weighted exp(-f_k) (`build_context_graph`), stacked into padded CSRs
 with per-row alias tables and each vertex's count of heavier-than-average
 edges, gamma (`build_layer_csr`). The result is pickled to `temp_path`,
 keyed by a hash of the graph and the options. The biased multilayer walk
-runs on the model's device in plain PyTorch (`multilayer_walks`), and
+runs on the model's device, on a card as one launch of the walk kernel K9
+(`multilayer_walks`, `csrc/walk.cu`), on the CPU in plain PyTorch
+(`multilayer_walks_plain`), and
 `train` fits hierarchical softmax (hs='auto' up to `HS_AUTO_MAX_NODES`
 nodes) or SGNS over the walks.
 
@@ -34,8 +36,17 @@ import numpy as np
 import torch
 
 from graphembedding_tpu_torch import native
+from graphembedding_tpu_torch.kernels import build as kb
 from graphembedding_tpu_torch.models.base import WalkEmbeddingModel
 from graphembedding_tpu_torch.ops.alias import alias_draw, build_row_alias
+from graphembedding_tpu_torch.ops.walk import (
+    Uniforms,
+    check_tensor,
+    kernel_rng,
+    on_card,
+    ptr_or_null,
+    walk_starts,
+)
 
 # pairs a chunk of the distance build holds: its f64 [chunk, layers]
 # buffer is freed before the next chunk
@@ -387,8 +398,33 @@ def build_layer_csr(layer_edges, num_nodes):
 # --------------------------------------------------------------------------- #
 
 
-def multilayer_walks(row_ptr, col_idx, accept, alias, gamma, starts,
-                     generator, stay_prob, *, length, max_moves=16):
+def multilayer_draw_shapes(B, length, max_moves=16):
+    """`multilayer_walks`' draws: one [4 * max_moves + 2, B] an emission
+    (a try's stay coin, slot, alias coin and layer coin, then the forced
+    step's slot and coin)."""
+    return [(4 * max_moves + 2, B)] * max(length - 1, 0)
+
+
+def layer_tables(row_ptr, gamma, E):
+    """What the multilayer walk reads of (layer, vertex), flat [K * V]:
+    the degree and the first edge's flat slot in [K, E] (int64), the
+    up-probability x / (x + 1), x = log(gamma + e) (f32), and whether the
+    layer above has edges (the probe's layer clamped at K - 1)."""
+    K = row_ptr.shape[0]
+    dev = row_ptr.device
+    rp = row_ptr.long()
+    deg = rp[:, 1:] - rp[:, :-1]  # [K, V]
+    first = rp[:, :-1] + E * torch.arange(K, device=dev)[:, None]
+    x = torch.log(gamma + math.e)
+    p_up = x / (x + 1.0)
+    up_deg = deg[(torch.arange(K, device=dev) + 1).clamp(max=K - 1)]
+    can_up = (torch.arange(K, device=dev)[:, None] + 1 < K) & (up_deg > 0)
+    return tuple(t.reshape(-1) for t in (deg, first, p_up, can_up))
+
+
+def multilayer_walks_plain(row_ptr, col_idx, accept, alias, gamma, starts,
+                           generator, stay_prob, *, length, max_moves=16,
+                           draws=None):
     """Biased multilayer walks (the reference's
     `BiasedWalker._exec_random_walk`), int32 [B, length] on starts' device.
 
@@ -404,25 +440,16 @@ def multilayer_walks(row_ptr, col_idx, accept, alias, gamma, starts,
     stays.
 
     What depends only on (layer, vertex) is a flat [K * V] table built
-    once from row_ptr: the degree, the first edge's flat slot in [K,
-    E_max], the up-probability and whether the layer above has edges (the
-    probe's layer clamped at K - 1). The tries run at a fixed count,
+    once from row_ptr (`layer_tables`). The tries run at a fixed count,
     walkers done masked, so no try waits on the host; every gather is flat
-    and in bounds. The draws come from `generator`: the walks follow the
+    and in bounds. The draws come from `generator`, or from `draws`
+    (`multilayer_draw_shapes`; pass generator=None): the walks follow the
     JAX package's law, not its values.
     """
     K, Vp1 = row_ptr.shape
     V, E = Vp1 - 1, col_idx.shape[1]
     dev = starts.device
-    rp = row_ptr.long()
-    deg = rp[:, 1:] - rp[:, :-1]  # [K, V]
-    first = rp[:, :-1] + E * torch.arange(K, device=dev)[:, None]
-    x = torch.log(gamma + math.e)
-    p_up = x / (x + 1.0)
-    up_deg = deg[(torch.arange(K, device=dev) + 1).clamp(max=K - 1)]
-    can_up = (torch.arange(K, device=dev)[:, None] + 1 < K) & (up_deg > 0)
-    deg, first, p_up, can_up = (t.reshape(-1) for t in (deg, first, p_up,
-                                                        can_up))
+    deg, first, p_up, can_up = layer_tables(row_ptr, gamma, E)
     cols, acc, ali = (t.reshape(-1) for t in (col_idx, accept, alias))
 
     def neighbor_step(idx, v, u1, u2):
@@ -432,14 +459,15 @@ def multilayer_walks(row_ptr, col_idx, accept, alias, gamma, starts,
         return torch.where(d > 0, nxt, v)
 
     B = starts.shape[0]
+    rand = Uniforms(generator, draws,
+                     multilayer_draw_shapes(B, length, max_moves), dev)
     v = starts.long()
     layer = torch.zeros_like(v)
     out = torch.empty((B, length), dtype=torch.int32, device=dev)
     out[:, 0] = starts
     for step in range(1, length):
         # every uniform of the emission in one draw: 4 a try, 2 forced
-        u = torch.rand((4 * max_moves + 2, B), generator=generator,
-                       device=dev)
+        u = rand((4 * max_moves + 2, B))
         stepped = torch.zeros(B, dtype=torch.bool, device=dev)
         for i in range(max_moves):
             r, u1, u2, r2 = u[4 * i: 4 * i + 4]
@@ -457,6 +485,57 @@ def multilayer_walks(row_ptr, col_idx, accept, alias, gamma, starts,
         v = torch.where(stepped, v, forced)
         out[:, step] = v.to(torch.int32)
     return out
+
+
+def multilayer_walks(row_ptr, col_idx, accept, alias, gamma, starts,
+                     generator, stay_prob, *, length, max_moves=16,
+                     draws=None):
+    """K9: the multilayer walk of `multilayer_walks_plain` (which the CPU
+    runs; its arguments). On a card the per-(layer, vertex) tables
+    (`layer_tables`, the plain version's own) and one launch of
+    `csrc/walk.cu`'s multilayer walk, a thread a walker holding (vertex,
+    layer): the same tries, layer moves and forced step, from Philox keyed
+    by a seed drawn from `generator`, or from the shared `draws`
+    (`multilayer_draw_shapes`; pass generator=None)."""
+    name = "multilayer_walks"
+    if not on_card(name, row_ptr, col_idx, accept, alias, gamma, starts):
+        return multilayer_walks_plain(
+            row_ptr, col_idx, accept, alias, gamma, starts, generator,
+            stay_prob, length=length, max_moves=max_moves, draws=draws)
+    if row_ptr.dim() != 2 or row_ptr.dtype not in (torch.int32,
+                                                   torch.int64):
+        raise ValueError(f"{name}: row_ptr must be int32 or int64 [K, V+1], "
+                         f"got {row_ptr.dtype} {tuple(row_ptr.shape)}")
+    check_tensor(name, "col_idx", col_idx, torch.int32, 2)
+    check_tensor(name, "accept", accept, torch.float32, 2)
+    check_tensor(name, "alias", alias, torch.int32, 2)
+    check_tensor(name, "gamma", gamma, torch.float32, 2)
+    K, Vp1 = row_ptr.shape
+    V, E = Vp1 - 1, col_idx.shape[1]
+    if (tuple(accept.shape) != (K, E) or tuple(alias.shape) != (K, E)
+            or tuple(gamma.shape) != (K, V) or K * E < 1):
+        raise ValueError(f"{name}: col_idx, accept and alias must be [K, E] "
+                         f"with K * E >= 1 and gamma [K, V]")
+    starts = walk_starts(name, starts)
+    B, dev = starts.shape[0], starts.device
+    draws_ptr, seed = kernel_rng(name, generator, draws,
+                                 multilayer_draw_shapes(B, length,
+                                                        max_moves), dev)
+    out = torch.empty((B, length), dtype=torch.int32, device=dev)
+    if B == 0 or length == 0:
+        return out
+    deg, first, p_up, can_up = layer_tables(row_ptr, gamma, E)
+    kb.check(kb.library().ge_walk_multilayer(
+        dev.index, deg.data_ptr(), first.data_ptr(), p_up.data_ptr(),
+        can_up.data_ptr(), col_idx.data_ptr(), accept.data_ptr(),
+        alias.data_ptr(), V, K * E, starts.data_ptr(), B, length, max_moves,
+        stay_prob, draws_ptr, ptr_or_null(seed), out.data_ptr(),
+        kb.stream_ptr(dev)), name)
+    multilayer_walks.launches += 1
+    return out
+
+
+multilayer_walks.launches = 0
 
 
 # --------------------------------------------------------------------------- #

@@ -31,7 +31,12 @@ spawned rank) equals the single-device chunk bit for bit, with K3 once, K1
 once and K2 twice a step; each mesh trainer's chunks there (rowshard with
 prefetch off and on, dp SGNS, HS and LINE, SDNE full batch and sparse)
 through their CUDA graphs, the NCCL exchanges inside, equal the same steps
-launched one by one, with the same launches.
+launched one by one, with the same launches. Each walk kernel (K6-K9,
+csrc/walk.cu) walks exactly its plain version's corpus on the uniforms
+that version draws (`draws=`), one launch a corpus; from a seed (Philox) it
+walks the same corpus twice, every hop an edge, -1 after a dead end, and
+its third hop on the weighted triangle with a tail follows the exact law
+within atol 0.03.
 """
 
 import functools
@@ -62,6 +67,7 @@ from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads,
     sgns_block_grads_plain,
 )
+from graphembedding_tpu_torch.ops import walk
 from graphembedding_tpu_torch.ops.walk import simulate_walks, uniform_walks
 from graphembedding_tpu_torch.train import dense
 from graphembedding_tpu_torch.train import hsoftmax as hs
@@ -740,6 +746,212 @@ def test_multilayer_walks_on_card(cuda):
     u, v = w[:, :-1].ravel(), w[:, 1:].ravel()
     assert (np.isin(u * V + v, keys) | ((u == v) & (deg[:, u] == 0).any(0))
             ).all()
+
+
+# ---- the walk kernels (K6-K9, csrc/walk.cu) ----------------------------
+
+def walk_graph(weighted, seed=0):
+    """A 40-node graph with dead ends (vertices 34-39 have no out-edges),
+    weights in [0.5, 3) where `weighted`."""
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, 34, 160), rng.integers(0, 38, 160)
+    w = (rng.random(160).astype(np.float32) * 2.5 + 0.5) if weighted \
+        else None
+    return Graph(src, dst, w, num_nodes=40)
+
+
+def tail_graph(weighted=True):
+    """The triangle with a tail, undirected: 0-1 (weight 3), 1-2 (1), 2-0
+    (2), 2-3 (0.5), or every weight 1."""
+    w = np.array([3.0, 1.0, 2.0, 0.5], dtype=np.float32) if weighted \
+        else None
+    return Graph(np.array([0, 1, 2, 2]), np.array([1, 2, 0, 3]), w,
+                 directed=False)
+
+
+def one_layer(g, dev):
+    """`g` as Struc2Vec layers of one layer (no layer moves: every
+    emission is one weighted step)."""
+    accept, alias = g.host_alias()
+    return s2v.layers_to(dict(
+        row_ptr=g.row_ptr[None], col_idx=g.col_idx[None],
+        accept=accept[None], alias=alias[None],
+        gamma=np.zeros((1, g.num_nodes), np.float32)), dev)
+
+
+def walk_runs(kind, g, dev, starts, length, p=0.25, q=4.0, layers=None):
+    """(kernel(generator=, draws=), plain(generator=, draws=), draws
+    shapes) of one walk kind on g (multilayer: on `layers`, else on g as
+    one layer)."""
+    dg = g.to(dev)
+    B = starts.shape[0]
+    if kind in ("uniform", "weighted"):
+        if kind == "uniform":
+            args = (dg.row_ptr, dg.col_idx, dg.degree, starts)
+            return (functools.partial(walk.uniform_walks, *args,
+                                      length=length),
+                    functools.partial(walk.uniform_walks_plain, *args,
+                                      length=length),
+                    walk.uniform_draw_shapes(B, length))
+        args = (dg.row_ptr, dg.col_idx, dg.degree, *g.alias_tables(dev),
+                starts)
+        return (functools.partial(walk.weighted_walks, *args, length=length),
+                functools.partial(walk.weighted_walks_plain, *args,
+                                  length=length),
+                walk.weighted_draw_shapes(B, length))
+    if kind == "exact":
+        nbr, nbr_w = g.neighbor_matrix(dev)
+        args = (dg.degree, nbr, nbr_w, starts, p, q)
+        return (functools.partial(walk.node2vec_walks, *args, length=length),
+                functools.partial(walk.node2vec_walks_plain, *args,
+                                  length=length),
+                walk.node2vec_draw_shapes(B, length, nbr.shape[1]))
+    if kind == "multilayer":
+        ly = one_layer(g, dev) if layers is None else layers
+        args = (ly["row_ptr"], ly["col_idx"], ly["accept"], ly["alias"],
+                ly["gamma"], starts)
+
+        def run(fn):
+            return lambda generator=None, draws=None: fn(
+                *args, generator, 0.3, length=length, draws=draws)
+        return (run(s2v.multilayer_walks), run(s2v.multilayer_walks_plain),
+                s2v.multilayer_draw_shapes(B, length))
+    form = kind.split("_", 1)[1]
+    kw = dict(length=length, max_degree=max(dg.max_degree, 1))
+    if form != "bound":
+        kw.update(edge_weight=dg.edge_weight, wsum=g.weight_sums(dev))
+    if form.startswith("dense"):
+        kw.update(nbr=g.neighbor_ids(dev), uniform_rows=form == "dense")
+    args = (dg.row_ptr, dg.col_idx, dg.degree, *g.alias_tables(dev), starts,
+            p, q)
+    return (functools.partial(walk.node2vec_walks_rejection, *args, **kw),
+            functools.partial(walk.node2vec_walks_rejection_plain, *args,
+                              **kw),
+            walk.rejection_draw_shapes(B, length, p, q,
+                                       envelope=form != "bound",
+                                       row_slots=form == "dense"))
+
+
+WALK_KINDS = ["uniform", "weighted", "exact", "rejection_csr",
+              "rejection_dense", "rejection_dense_alias", "rejection_bound",
+              "multilayer"]
+
+
+def kernel_of(kind):
+    return {"uniform": walk.uniform_walks, "weighted": walk.weighted_walks,
+            "exact": walk.node2vec_walks,
+            "multilayer": s2v.multilayer_walks}.get(
+                kind, walk.node2vec_walks_rejection)
+
+
+@pytest.mark.parametrize("kind", WALK_KINDS)
+def test_walk_kernel_equals_plain_on_shared_draws(cuda, kind):
+    """Each walk kernel, one launch, walks its plain version's corpus on
+    the same uniforms (dead ends included); from a seed it walks the same
+    corpus twice, every hop an edge."""
+    layers = None
+    if kind == "multilayer":
+        g = load_dataset("flight-brazil").graph
+        layers = s2v.layers_to(s2v.build_layer_csr(
+            s2v.build_context_graph(g)[0], g.num_nodes), cuda)
+    else:
+        g = walk_graph(kind in ("weighted", "exact", "rejection_csr",
+                                "rejection_dense_alias"))
+    starts = torch.arange(g.num_nodes, device=cuda).repeat(5)
+    kernel, plain, shapes = walk_runs(kind, g, cuda, starts, 8,
+                                      layers=layers)
+    draws = walk.record_draws(
+        shapes, torch.Generator(device=cuda).manual_seed(1))
+    k = kernel_of(kind)
+    before = k.launches
+    got = kernel(draws=draws)
+    assert k.launches == before + 1
+    assert torch.equal(got, plain(draws=draws))
+    a = kernel(generator=torch.Generator(device=cuda).manual_seed(2))
+    b = kernel(generator=torch.Generator(device=cuda).manual_seed(2))
+    assert torch.equal(a, b)
+    if kind != "multilayer":
+        w = a.cpu().numpy().astype(np.int64)
+        src, dst, _ = g.edges()
+        u, v = w[:, :-1].ravel(), w[:, 1:].ravel()
+        hop = v >= 0
+        assert np.isin(u[hop] * 40 + v[hop], src * 40 + dst).all()
+        # once dead, dead for good
+        assert ((w[:, 1:] >= 0) <= (w[:, :-1] >= 0)).all()
+
+
+@pytest.mark.parametrize("kind", WALK_KINDS)
+def test_walk_kernel_third_hop_law(cuda, kind):
+    """The third hop from 0 through 1 on the weighted triangle with a tail,
+    from Philox draws: from 1, having come from 0, N(1) = {0 (w 3), 2 (w
+    1)}, 2 in N(0), so (p,q) = (0.25, 4) weighs 0 by 1/p; the uniform walk
+    ignores the weights; the one-layer multilayer walk is the weighted
+    walk; dense rejection's uniform row slots take the unweighted graph
+    (the only one simulate_walks gives them), where 0 weighs 1/p and 2
+    weighs 1."""
+    g = tail_graph(weighted=kind != "rejection_dense")
+    starts = torch.zeros(40000, dtype=torch.int64, device=cuda)
+    kernel, _, _ = walk_runs(kind, g, cuda, starts, 3)
+    walks = kernel(
+        generator=torch.Generator(device=cuda).manual_seed(4)).cpu().numpy()
+    sel = walks[walks[:, 1] == 1]
+    assert len(sel) > 2000
+    target = {"uniform": [1.0, 1.0], "weighted": [3.0, 1.0],
+              "multilayer": [3.0, 1.0]}.get(kind, [3.0 / 0.25, 1.0])
+    if kind == "rejection_dense":
+        target = [1.0 / 0.25, 1.0]
+    freq = np.bincount(sel[:, 2], minlength=4)[[0, 2]] / len(sel)
+    np.testing.assert_allclose(freq, np.array(target) / sum(target),
+                               atol=0.03)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "weighted", "exact",
+                                  "rejection_csr", "rejection_dense",
+                                  "rejection_bound"])
+def test_walk_kernel_dead_end_row(cuda, kind):
+    """0 -> 1 -> 2 -> 3, nothing out of 3: -1 from the dead end on."""
+    g = Graph(np.array([0, 1, 2]), np.array([1, 2, 3]), num_nodes=4)
+    starts = torch.tensor([0, 3, 2], device=cuda)
+    kernel, _, _ = walk_runs(kind, g, cuda, starts, 6)
+    walks = kernel(generator=torch.Generator(device=cuda).manual_seed(0))
+    assert walks.cpu().tolist() == [[0, 1, 2, 3, -1, -1],
+                                    [3, -1, -1, -1, -1, -1],
+                                    [2, 3, -1, -1, -1, -1]]
+
+
+def test_walk_kernels_refuse_wrong_inputs(cuda):
+    g = walk_graph(True)
+    dg = g.to(cuda)
+    nbr, nbr_w = g.neighbor_matrix(cuda)
+    accept, alias = g.alias_tables(cuda)
+    starts = torch.arange(40, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with pytest.raises(ValueError, match="col_idx"):
+        walk.uniform_walks(dg.row_ptr, dg.col_idx.long(), dg.degree, starts,
+                           length=4, generator=gen)
+    with pytest.raises(ValueError, match="accept"):
+        walk.weighted_walks(dg.row_ptr, dg.col_idx, dg.degree,
+                            accept.double(), alias, starts, length=4,
+                            generator=gen)
+    with pytest.raises(ValueError, match="nbr_w"):
+        walk.node2vec_walks(dg.degree, nbr, nbr_w.double(), starts, 0.25,
+                            4.0, length=4, generator=gen)
+    with pytest.raises(ValueError, match="degree"):
+        walk.node2vec_walks_rejection(
+            dg.row_ptr, dg.col_idx, dg.degree.long(), accept, alias, starts,
+            0.25, 4.0, length=4, max_degree=dg.max_degree, generator=gen)
+    with pytest.raises(ValueError, match="several devices"):
+        walk.uniform_walks(dg.row_ptr, dg.col_idx, dg.degree, starts.cpu(),
+                           length=4, generator=gen)
+    with pytest.raises(ValueError, match="draws"):
+        walk.uniform_walks(dg.row_ptr, dg.col_idx, dg.degree, starts,
+                           length=4, draws=torch.rand(5, device=cuda))
+    ly = one_layer(tail_graph(), cuda)
+    with pytest.raises(ValueError, match="accept"):
+        s2v.multilayer_walks(ly["row_ptr"], ly["col_idx"],
+                             ly["accept"].double(), ly["alias"], ly["gamma"],
+                             torch.zeros(3, device=cuda, dtype=torch.int32),
+                             gen, 0.3, length=4)
 
 
 def assert_updates_close(got, want, init):
