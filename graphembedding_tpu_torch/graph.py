@@ -22,6 +22,7 @@ from graphembedding_tpu_torch.utils.debug import (
     validate_graph,
     validation_enabled,
 )
+from graphembedding_tpu_torch.utils.profiling import span
 from graphembedding_tpu_torch.utils.vocab import IdentityVocab, Vocab
 
 
@@ -186,7 +187,8 @@ class Graph:
                 device = torch.device("cuda", torch.cuda.current_device())
         key = (name, None if device is None else str(device))
         if key not in self._views:
-            self._views[key] = build()
+            with span("graph.view", view=name, device=key[1]):
+                self._views[key] = build()
         return self._views[key]
 
     def free_device(self) -> None:

@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 import time
 
+from graphembedding_tpu_torch.utils.profiling import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -161,7 +163,8 @@ def _bind(lib, names):
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    return _bind(ctypes.CDLL(build()), SIGNATURES)
+    with span("kernels.load"):
+        return _bind(ctypes.CDLL(build()), SIGNATURES)
 
 
 def build_text(src, subdir, tag):

@@ -18,7 +18,9 @@ caller asks for it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 from typing import Dict, Optional
 
 import torch
@@ -35,9 +37,13 @@ from graphembedding_tpu_torch.train.skipgram import (
     SkipGramConfig,
     SkipGramTrainer,
 )
+from graphembedding_tpu_torch.utils.profiling import span
 
 # options of the JAX package's trainer that the port does not have
 _NOT_PORTED = ("shuffle_mode", "use_pallas", "matmul_bf16", "stale_groups")
+
+# each model's `fit_id`: the `fit` of its `walk` and `train` spans
+_FIT_IDS = itertools.count()
 
 
 def as_graph(graph) -> Graph:
@@ -76,6 +82,7 @@ class WalkEmbeddingModel:
         self.losses = None
         self.trained_pairs = 0.0
         self._embeddings: Optional[Dict] = None
+        self.fit_id = next(_FIT_IDS)
 
     def _mesh_walks(self, graph, **walker_kw):
         """The corpus walked over the model's mesh from its seed (every
@@ -105,6 +112,9 @@ class WalkEmbeddingModel:
                     f"{name}= is not ported to graphembedding_tpu_torch")
         fit_kw = dict(checkpoint_dir=checkpoint_dir,
                       checkpoint_every=checkpoint_every, metrics=metrics)
+        # the single-card fit is the `train` span
+        train_span = (span("train", fit=self.fit_id) if mesh is None
+                      else contextlib.nullcontext())
         if hs:
             # as in the JAX package: window, epochs and seed kwargs win
             # over the explicit arguments, and seed + 1 seeds the fit; a
@@ -116,8 +126,10 @@ class WalkEmbeddingModel:
                             epochs=kwargs.get("epochs", iter), alpha=alpha,
                             min_alpha=min_alpha, sample=sample, seed=seed,
                             mesh=mesh)
-            self.w_in, self.w_out, self.losses = hst.fit(
-                self.walks, self.graph.num_nodes, seed=seed + 1, **fit_kw)
+            with train_span:
+                self.w_in, self.w_out, self.losses = hst.fit(
+                    self.walks, self.graph.num_nodes, seed=seed + 1,
+                    **fit_kw)
             self.trained_pairs = hst.trained_pairs_
             self._embeddings = None
             return self
@@ -140,8 +152,10 @@ class WalkEmbeddingModel:
                 **fit_kw)
         else:
             sgns = SkipGramTrainer(cfg)
-            w_cat, self.losses = sgns.fit(self.walks, self.graph.num_nodes,
-                                          seed=cfg.seed + 1, **fit_kw)
+            with train_span:
+                w_cat, self.losses = sgns.fit(
+                    self.walks, self.graph.num_nodes, seed=cfg.seed + 1,
+                    **fit_kw)
             D = cfg.embed_size
             self.w_in, self.w_out = w_cat[:, :D], w_cat[:, D:]
         self.trained_pairs = sgns.trained_pairs_

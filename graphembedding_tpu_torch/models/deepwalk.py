@@ -12,6 +12,7 @@ import torch
 
 from graphembedding_tpu_torch.models.base import WalkEmbeddingModel
 from graphembedding_tpu_torch.ops.walk import simulate_walks
+from graphembedding_tpu_torch.utils.profiling import span
 
 
 class DeepWalk(WalkEmbeddingModel):
@@ -28,10 +29,11 @@ class DeepWalk(WalkEmbeddingModel):
             self.walks = self._mesh_walks(self.graph, kind="uniform",
                                           exchange=walk_exchange)
         else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            self.walks = simulate_walks(self.graph, num_walks, walk_length,
-                                        generator=gen)
+            with span("walk", fit=self.fit_id):
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed)
+                self.walks = simulate_walks(self.graph, num_walks,
+                                            walk_length, generator=gen)
 
     def train(self, embed_size=128, window_size=5, workers=None, iter=5,
               **kwargs):

@@ -18,6 +18,7 @@ from graphembedding_tpu_torch.ops.walk import (
     pq_sampler,
     simulate_walks,
 )
+from graphembedding_tpu_torch.utils.profiling import span
 
 
 class Node2Vec(WalkEmbeddingModel):
@@ -47,11 +48,12 @@ class Node2Vec(WalkEmbeddingModel):
                 kind=("node2vec_rejection" if self.use_rejection_sampling
                       else "node2vec"))
         else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            self.walks = simulate_walks(self.graph, num_walks, walk_length,
-                                        generator=gen, kind="node2vec", p=p,
-                                        q=q, sampler=self.sampler)
+            with span("walk", fit=self.fit_id):
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed)
+                self.walks = simulate_walks(
+                    self.graph, num_walks, walk_length, generator=gen,
+                    kind="node2vec", p=p, q=q, sampler=self.sampler)
 
     def train(self, embed_size=128, window_size=5, workers=None, iter=5,
               **kwargs):

@@ -97,6 +97,7 @@ from graphembedding_tpu_torch.ops.rows import (
     scatter_add_small,
 )
 from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
+from graphembedding_tpu_torch.utils.profiling import count, span
 
 # the kernels' wrappers, each counting its launches in `launches`
 COUNTERS = (sgns_block_grads, gather_rows, scatter_add_rows,
@@ -247,13 +248,16 @@ class ChunkGraph:
     def run(self, tables, inputs):
         """Copy in, replay, copy the tables back; returns clones of the
         outputs."""
-        for name, t in (*tables.items(), *inputs.items()):
-            self.bufs[name].copy_(t)
-        self.capture.replay()
+        with span("chunk.copy_in"):
+            for name, t in (*tables.items(), *inputs.items()):
+                self.bufs[name].copy_(t)
+        with span("chunk.replay"):
+            self.capture.replay()
         self.counts.replayed()
-        for name, t in tables.items():
-            t.copy_(self.bufs[name])
-        return tuple(o.clone() for o in self.outputs)
+        with span("chunk.copy_out"):
+            for name, t in tables.items():
+                t.copy_(self.bufs[name])
+            return tuple(o.clone() for o in self.outputs)
 
 
 # The most bytes the chunk graphs of one device may hold (`ChunkGraph.
@@ -321,7 +325,12 @@ def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
     the port (SDNE's, the dense trainer's): it captures on a card, and
     warms up through the same step.
     """
-    consts = consts or {}
+    with span("chunk"):
+        return _run_chunk(step, n_steps, tables, inputs, ops, plain,
+                          consts or {}, groups)
+
+
+def _run_chunk(step, n_steps, tables, inputs, ops, plain, consts, groups):
     bufs = {**tables, **inputs}
     device = next(iter(tables.values())).device
     if groups:
@@ -345,11 +354,14 @@ def run_chunk(step, n_steps, tables, inputs, *, ops=None, plain=None,
            torch.backends.cuda.matmul.allow_tf32)
     graph = _GRAPHS.pop(key, None)
     if graph is not None:
+        count("chunk.hits")
         _GRAPHS[key] = graph  # the most recent
         return graph.run(tables, inputs)
-    _evict(key[0], tensor_bytes(bufs.values()))
-    join_groups(groups, device)
-    graph = ChunkGraph(step, n_steps, bufs, ops, plain, consts, groups)
+    count("chunk.captures")
+    with span("chunk.capture"):
+        _evict(key[0], tensor_bytes(bufs.values()))
+        join_groups(groups, device)
+        graph = ChunkGraph(step, n_steps, bufs, ops, plain, consts, groups)
     out = graph.run(tables, inputs)  # a graph whose first replay fails is
     _GRAPHS[key] = graph             # not kept
     _evict(key[0], keep=key)

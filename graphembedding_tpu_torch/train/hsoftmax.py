@@ -75,6 +75,7 @@ from graphembedding_tpu_torch.utils.debug import (
     validation_enabled,
 )
 from graphembedding_tpu_torch.utils.precision import f32_matmul
+from graphembedding_tpu_torch.utils.profiling import count, span
 
 # what a checkpoint of `HSTrainer.fit` holds
 HS_STATE_KEYS = ("w_in", "w_tree", "step", "rng", "rng_epoch")
@@ -292,12 +293,13 @@ def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
     S = eff.shape[0]
     if tuple(eff.shape) != (S, geo.G, geo.PL):
         raise ValueError(f"draws eff {tuple(eff.shape)} do not match {geo}")
-    window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha, total_steps),
-                          device=walks.device)
-    inputs = dict(tokens=chunk_blocks(walks, t0, S, geo), eff=eff,
-                  points=points, codes=codes, lrs=lrs, window_ok=window_ok,
-                  dm=dm)
+    with span("train.draws"):
+        window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
+        lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha,
+                                       total_steps), device=walks.device)
+        inputs = dict(tokens=chunk_blocks(walks, t0, S, geo), eff=eff,
+                      points=points, codes=codes, lrs=lrs,
+                      window_ok=window_ok, dm=dm)
     with f32_matmul():
         losses, pairs = run_chunk(
             _chunk_step, S, {"w_in": w_in, "w_tree": w_tree}, inputs,
@@ -407,19 +409,20 @@ class HSTrainer:
         # the LR decays over the steps executed (whole chunks)
         total_steps = self.epochs * chunks_per_epoch * self.chunk_steps
 
-        # the Huffman tree over the RAW counts (gensim builds the vocab
-        # first), then the subsample keep-probabilities
-        counts = corpus_counts(walks, num_nodes)
-        points, codes, _ = build_huffman(counts)
-        points = torch.as_tensor(points, device=device)
-        codes = torch.as_tensor(codes, device=device)
-        keep_tok = keep_per_token(walks, counts, self.sample)
-
         D = self.embed_size
-        w_in = (torch.rand((num_nodes, D), generator=gen, device=device)
-                - 0.5) / D
-        w_tree = torch.zeros((max(num_nodes - 1, 1), D),
-                             dtype=torch.float32, device=device)
+        with span("train.tables"):
+            # the Huffman tree over the RAW counts (gensim builds the vocab
+            # first), then the subsample keep-probabilities
+            counts = corpus_counts(walks, num_nodes)
+            with span("train.tables.huffman"):
+                points, codes, _ = build_huffman(counts)
+            points = torch.as_tensor(points, device=device)
+            codes = torch.as_tensor(codes, device=device)
+            keep_tok = keep_per_token(walks, counts, self.sample)
+            w_in = (torch.rand((num_nodes, D), generator=gen, device=device)
+                    - 0.5) / D
+            w_tree = torch.zeros((max(num_nodes - 1, 1), D),
+                                 dtype=torch.float32, device=device)
         if mesh is None:
             state = (try_restore(checkpoint_dir, HS_STATE_KEYS)
                      if checkpoint_dir else None)
@@ -450,13 +453,16 @@ class HSTrainer:
                 t += epoch_steps  # a fully resumed epoch: no shuffle
                 continue
             rng_epoch = resume.epoch_start(gen, t)
-            shuffled = prepare_epoch(walks, keep_tok, gen)
+            with span("train.prepare"):
+                shuffled = prepare_epoch(walks, keep_tok, gen)
             resume.chunks_start(gen)
+            count("train.blocks", geo.n_blocks)
             for _ in range(chunks_per_epoch):
                 if t < resume.step:
                     t += S
                     continue
-                eff = window_draws(draws, (S, geo.G, geo.PL), W)
+                with span("train.draws"):
+                    eff = window_draws(draws, (S, geo.G, geo.PL), W)
                 args = (w_in, w_tree, shuffled, points, codes, eff,
                         self.alpha, self.min_alpha, t, total_steps)
                 if mesh is None:
@@ -471,6 +477,7 @@ class HSTrainer:
                 losses.append(lc)
                 pairs.append(pc)
                 t += S
+                count("train.steps", S)
                 n_chunk_calls += 1
                 if metrics is not None:
                     metrics.log(kind="hs_chunk", epoch=epoch, step=t,

@@ -53,6 +53,7 @@ from graphembedding_tpu_torch.utils.debug import (
     validate_walks,
     validation_enabled,
 )
+from graphembedding_tpu_torch.utils.profiling import count, span
 
 
 @dataclass
@@ -450,11 +451,12 @@ def sgns_block_chunk_cat(w_cat, walks, eff, negs, alpha, min_alpha, t0,
             S, geo.G2, K):
         raise ValueError(f"draws eff {tuple(eff.shape)} / negs "
                          f"{tuple(negs.shape)} do not match {geo}")
-    window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
-    lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha, total_steps),
-                          device=walks.device)
-    inputs = dict(tokens=chunk_blocks(walks, t0, S, geo), eff=eff, negs=negs,
-                  lrs=lrs, window_ok=window_ok, dm=dm)
+    with span("train.draws"):
+        window_ok, dm = window_geometry(L, geo.PL, window, walks.device)
+        lrs = torch.as_tensor(step_lrs(t0, S, alpha, min_alpha,
+                                       total_steps), device=walks.device)
+        inputs = dict(tokens=chunk_blocks(walks, t0, S, geo), eff=eff,
+                      negs=negs, lrs=lrs, window_ok=window_ok, dm=dm)
     consts = dict(nsp=geo.nsp, neg_w=float(np.float32(negative)
                                             / np.float32(K)),
                   update_cap=float(update_cap), sparse_cap=bool(sparse_cap))
@@ -576,20 +578,22 @@ class SkipGramTrainer:
         k_shared = min(cfg.k_shared, num_nodes)
         sparse_cap = sparse_cap_for(cfg.cap_mode, num_nodes)
 
-        # negative table and keep-probabilities from the raw corpus counts
-        counts = corpus_counts(walks, num_nodes)
-        table = torch.as_tensor(
-            negative_table(counts, cfg.ns_exponent, cfg.neg_table_size),
-            device=device)
-        keep_tok = keep_per_token(walks, counts, cfg.sample)
-
         D = cfg.embed_size
-        state = (try_restore(checkpoint_dir, SGNS_STATE_KEYS)
-                 if checkpoint_dir else None)
-        if state is None:
-            w_cat = self.init_table(num_nodes, gen, device)
-        else:
-            w_cat = torch.cat([state["w_in"], state["w_out"]], 1).to(device)
+        with span("train.tables"):
+            # negative table and keep-probabilities from the raw corpus
+            # counts
+            counts = corpus_counts(walks, num_nodes)
+            table = torch.as_tensor(
+                negative_table(counts, cfg.ns_exponent, cfg.neg_table_size),
+                device=device)
+            keep_tok = keep_per_token(walks, counts, cfg.sample)
+            state = (try_restore(checkpoint_dir, SGNS_STATE_KEYS)
+                     if checkpoint_dir else None)
+            if state is None:
+                w_cat = self.init_table(num_nodes, gen, device)
+            else:
+                w_cat = torch.cat([state["w_in"], state["w_out"]],
+                                  1).to(device)
         resume = Resume(state)
         losses, pairs = [], []
         t = 0
@@ -600,17 +604,20 @@ class SkipGramTrainer:
                 t += epoch_steps  # a fully resumed epoch: no shuffle
                 continue
             rng_epoch = resume.epoch_start(gen, t)
-            shuffled = prepare_epoch(walks, keep_tok, gen)
+            with span("train.prepare"):
+                shuffled = prepare_epoch(walks, keep_tok, gen)
             resume.chunks_start(gen)
+            count("train.blocks", geo.n_blocks)
             for _ in range(chunks_per_epoch):
                 S = cfg.chunk_steps
                 if t < resume.step:
                     t += S
                     continue
-                eff = window_draws(gen, (S, geo.G, geo.PL), cfg.window)
-                negs = table[torch.randint(
-                    0, table.shape[0], (S, geo.G2, k_shared),
-                    generator=gen, device=device)]
+                with span("train.draws"):
+                    eff = window_draws(gen, (S, geo.G, geo.PL), cfg.window)
+                    negs = table[torch.randint(
+                        0, table.shape[0], (S, geo.G2, k_shared),
+                        generator=gen, device=device)]
                 w_cat, lc, pc = sgns_block_chunk_cat(
                     w_cat, shuffled, eff, negs, cfg.alpha, cfg.min_alpha, t,
                     total_steps, block_walks=bw, window=cfg.window,
@@ -620,6 +627,7 @@ class SkipGramTrainer:
                 losses.append(lc)
                 pairs.append(pc)
                 t += S
+                count("train.steps", S)
                 n_chunk_calls += 1
                 if metrics is not None:
                     metrics.log(kind="sgns_chunk", epoch=epoch, step=t,
