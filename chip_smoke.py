@@ -52,8 +52,8 @@ Phases, one or more lines each:
      run by torch.profiler), then exact against dense rejection on a
      512-out-regular graph of 20,000 nodes (p = 0.25, q = 4, one walk of
      10 a node);
- 13. four hierarchical-softmax steps through the kernels (K3, and K4 by
-     `ops.rows.scatter_add_table`) against four through the plain
+ 13. four hierarchical-softmax steps through the kernels (K10, and K4
+     by `ops.rows.scatter_add_table`) against four through the plain
      versions, from the same tables and draws, at the DeepWalk hs=1 Wiki
      shapes (Bw = 504: G = 42 groups of PL = 120, Huffman depth T, the
      tree table [V - 1, 128]); then the step's two scatters, the tokens'
@@ -61,18 +61,20 @@ Phases, one or more lines each:
      [V - 1, 128], each by K4 (its plan by `ops.rows.small_plan`) bit-equal
      to K2 and to the CPU plain version and run to run, timed in turns
      with a bare `index_add_` and with K2, beside its bound; and the tree
-     gather by K3 and `index_select` in turns;
+     gather of the plain version's products (which the mesh's
+     tensor-parallel HS step runs) by K3 and `index_select` in turns;
  14. DeepWalk hs=1 path: load_dataset('wiki') -> DeepWalk(walk_length=10,
      num_walks=80, device='cuda') -> train(embed_size=128, window_size=5,
-     iter=3, hs=1) -> get_embeddings -> Classifier; checks that K3 and K4
-     launched 2,304 times each (2 a step x 1,152) and K1, K2 never, and
-     micro-F1 >= 0.93; prints train s, trained pairs/s, and the device
-     time and busy share of one warm train (torch.profiler);
+     iter=3, hs=1) -> get_embeddings -> Classifier; checks that K10
+     launched 1,152 times (once a step) and K4 2,304 (twice a step), K1,
+     K2 and K3 never, and micro-F1 >= 0.93; prints train s, trained
+     pairs/s, and the device time and busy share of one warm train
+     (torch.profiler);
  15. Struc2Vec path: load_dataset('flight-brazil') -> Struc2Vec(
      walk_length=10, num_walks=80, workers=4, temp_path=<a temporary
      directory>, device='cuda') -> train(embed_size=128, window_size=5, iter=5)
      (hs='auto' -> hs=1) -> get_embeddings -> Classifier; checks the HS route,
-     K3 and K4 launched 640 times each, every emitted hop an edge of a layer of
+     K10 launched 320 times and K4 640, every emitted hop an edge of a layer of
      the context graph or a stay at a vertex with no edge in some layer,
      micro-F1 >= 0.80, and that a second model with reuse=True loads the cache
      and walks the same corpus from the same seed, each model's corpus one
@@ -107,15 +109,15 @@ Phases, one or more lines each:
      0.93) and LINE(embedding_size=128, order='second') ->
      train(trainer='dense') (micro-F1 >= 0.70); cold train s with its
      capture, one warm train s and its tables equal to the cold one's.
-Phases 16-19 run none of K1-K5 (their products are cuBLAS calls and
-plain PyTorch); the run fails if any kernel's count moves in them. Their
+Phases 16-19 run none of K1-K5 and K10 (their products are cuBLAS calls
+and plain PyTorch); the run fails if any kernel's count moves in them. Their
 trains run each chunk of steps as one CUDA graph.
  20. restartable training: each run below is cut by an exception raised
      inside it (a metrics logger that raises on its n-th line, or a
      wrapped chunk or step function), then trained again in a fresh model
      from the same checkpoint_dir; the resumed tables must equal those of
      an uninterrupted train bit for bit (torch.equal), and the resumed
-     run's K1-K4 launches must be the steps it still had to train times
+     run's K1-K4 and K10 launches must be the steps it still had to train times
      the per-step counts of phases 5, 10 and 14. DeepWalk SGNS on Wiki (3
      chunks, a checkpoint every chunk, cut after chunk 2), DeepWalk hs=1
      (18 chunks, every 4, cut at chunk 7), LINE order 'all' (cut in order
@@ -235,17 +237,17 @@ Phases 27-28 run none of K1-K5 in the walks; the trains launch them.
      window_size=5, iter=1, hs=1) ('auto': the sparse cap at this V), then
      the same fit in the dense form (HSTrainer(cap_mode='dense'), the same
      seed), each cold (its chunk graphs captured) and warm, the graphs
-     released between, counts from 0 before the walks: K2 and K3 launched,
-     K4 and K1 never, embeddings finite, the loss falling; the Huffman
+     released between, counts from 0 before the walks: K10 and K2 launched,
+     K1, K3 and K4 never, embeddings finite, the loss falling; the Huffman
      build's host s, train s and trained pairs/s, the device time and busy
      share of a warm train, reserved memory after each train; the two
      forms' tables within rtol 1e-4, atol 1e-6; a chunk of 4 sparse steps
-     through K2 and K3 against the plain versions (the same tolerance) and
+     through K10 and K2 against the plain versions (the same tolerance) and
      through its graph torch.equal to the loop, launches equal; K2 at the
      sparse step's token and tree calls (the tree's hot Huffman runs)
      bit-equal to the CPU plain version, in turns with `index_add_`, and K3
      at its tree gather in turns with `index_select`, beside their bounds;
-     then on Wiki a chunk of 4 sparse-cap steps through K3 and K4 (K4 into
+     then on Wiki a chunk of 4 sparse-cap steps through K10 and K4 (K4 into
      the live tables) against 4 dense-cap ones (the same tolerance), and
      HSTrainer(cap_mode='sparse') and 'dense' fits (K4 2 a step, their
      difference printed), micro-F1 >= 0.93;
@@ -273,6 +275,19 @@ host memory.
      latency and not a figure of the card's); then each kernel's third-hop
      law from Philox draws on the weighted triangle with a tail (atol
      0.03).
+ 34. (run after phase 13) K10, the hs=1 step's scoring over the window's
+     pairs (`ops.hs.hs_block_grads`, csrc/hs.cu), at the DeepWalk hs=1
+     step on Wiki's corpus and on the benchmark cells' graphs
+     (BlogCatalog: 10,312 nodes of mean degree 65; YouTube: 1,138,499 of
+     mean degree 5; `benchmarks.million.synthetic_graph`, one walk of 10
+     a node, its Huffman tree over the corpus' counts, a block of 504 of
+     the walks): against its plain version (rtol 1e-5, atol 1e-6), the
+     same bits run to run, one launch a call; device ms in turns with the
+     plain version, the bound (bytes: d_yin and d_tree written, the rows
+     and paths the scored pairs touch read, once; operations: 6 D a
+     scored (pair, level) at the float32 peak) and `library_ms`, the
+     plain version's three batched products (`torch.bmm` in full float32)
+     together.
 In phases 5, 11, 12, 15 and 30 a plain walk given a CUDA tensor fails the
 run (`walks_through_kernels`), and each corpus is counted as one launch of
 its kernel. Each walk kernel record's `launches` is its main path's count
@@ -300,8 +315,9 @@ TFLOP/s). The chain of dependent hops is not in `bound_ms` (bytes and
 operations only); each walk kernel's line prints its share of the larger
 of the two. `library_ms` is one PyTorch call that computes the
 same function (`index_add_` on the in-range ids for K2 and K4,
-`index_select` for K3 and K5; none for K1 and the walk kernels), which the
-port never calls. The walk kernels' records also carry `chain_ms`.
+`index_select` for K3 and K5; none for K1 and the walk kernels; for K10
+the three `torch.bmm` of its plain version), which the port's kernels
+replace. The walk kernels' records also carry `chain_ms`.
 """
 
 import contextlib
@@ -1586,6 +1602,135 @@ def hs_scatter_phase(call, V, C, ids, grads, dev, card, record):
            plain_ms, bound, lib_ms)
 
 
+def tree_gather_ids(tok, points):
+    """The tree gather of the HS step's plain products: each context's
+    path ids, -1 levels and pads read as row 0, [G * PL * T] int32."""
+    import torch
+
+    tok_ok = tok >= 0
+    pts = points[torch.where(tok_ok, tok, 0)]
+    pts_ok = (pts >= 0) & tok_ok[:, :, None]
+    return torch.where(pts_ok, pts, 0).reshape(-1).contiguous()
+
+
+def hs_kernel_work(tok, eff, points, window_ok, dm, D):
+    """(bytes, FLOPs, scored (pair, level) entries) of K10 on one block:
+    d_yin and d_tree written once; the w_in rows of the pairs' centers,
+    the w_tree rows of their contexts' paths, those paths' points and
+    codes, and tok and eff read once; 6 D FLOPs (a dot product and two
+    row updates) a scored entry."""
+    import torch
+
+    G, PL = tok.shape
+    T = points.shape[1]
+    tok_ok = tok >= 0
+    safe = torch.where(tok_ok, tok, 0)
+    mask = (window_ok[None] & (dm[None] <= eff[:, :, None])
+            & tok_ok[:, :, None] & tok_ok[:, None, :])
+    pts = points[safe]
+    depth = ((pts >= 0) & tok_ok[:, :, None]).sum(2)  # [G, PL] contexts
+    scored = int((mask * depth[:, None, :]).sum())
+    ctx = mask.any(1)  # contexts with a pair
+    centers = torch.unique(tok[mask.any(2)]).numel()
+    live = pts[ctx]
+    rows = torch.unique(live[live >= 0]).numel()
+    paths = torch.unique(tok[ctx]).numel()
+    nbytes = 4 * ((G * PL * T + G * PL) * D + (centers + rows) * D
+                  + 2 * T * paths + 2 * G * PL)
+    return nbytes, 6 * D * scored, scored
+
+
+# phase 34's graphs: name, nodes and mean degree (the benchmark cells')
+HS_KERNEL_GRAPHS = (("blogcatalog", 10_312, 65), ("youtube", 1_138_499, 5))
+
+
+def hs_kernel_phase(dev, card, record, wiki_walks, wiki_V,
+                    graphs=HS_KERNEL_GRAPHS):
+    """Phase 34: K10 at the DeepWalk hs=1 step on Wiki's corpus and on
+    `graphs`, against its plain version, in turns with it, beside its
+    bound and the plain version's three products."""
+    import torch
+
+    from graphembedding_tpu_torch.benchmarks.common import (
+        median_ms, turns_ms)
+    from graphembedding_tpu_torch.benchmarks.million import synthetic_graph
+    from graphembedding_tpu_torch.ops.hs import (
+        hs_block_grads, hs_block_grads_plain)
+    from graphembedding_tpu_torch.ops.walk import simulate_walks
+    from graphembedding_tpu_torch.train import hsoftmax as hs
+    from graphembedding_tpu_torch.train import skipgram as sg
+    from graphembedding_tpu_torch.utils.precision import f32_matmul
+
+    D, L, W = 128, 10, 5
+    gen = torch.Generator(device=dev).manual_seed(34)
+    for name, V, degree in (("wiki", wiki_V, None), *graphs):
+        if degree is None:
+            walks = wiki_walks
+        else:
+            g = synthetic_graph(V, degree, seed=34, device=dev)
+            walks = simulate_walks(g, 1, L, generator=gen)
+            del g
+        points, codes, T = hs.build_huffman(sg.corpus_counts(walks, V))
+        points = torch.as_tensor(points, device=dev)
+        codes = torch.as_tensor(codes, device=dev)
+        geo = sg.block_geometry(walks.shape[0], L, 504, 1)
+        pick = torch.randperm(walks.shape[0], generator=gen, device=dev)
+        tok = walks[pick[:geo.Bw]].reshape(geo.G, geo.PL).contiguous()
+        eff = sg.window_draws(gen, (geo.G, geo.PL), W)
+        window_ok, dm = sg.window_geometry(L, geo.PL, W, dev)
+        w_in = (torch.rand((V, D), generator=gen, device=dev) - 0.5) / D
+        w_tree = torch.randn((V - 1, D), generator=gen, device=dev) * 0.05
+        args = (w_in, w_tree, tok, eff, points, codes, window_ok, dm)
+        before = hs_block_grads.launches
+        got = hs_block_grads(*args)
+        again = hs_block_grads(*args)
+        if hs_block_grads.launches != before + 2:
+            fail(f"K10 {name}: {hs_block_grads.launches - before} launches "
+                 f"for 2 calls")
+        with f32_matmul():
+            want = hs_block_grads_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K10 {name}: not the same bits from run to run")
+        err = max(max_err(a, b, HS_RTOL, HS_ATOL, f"K10 {name}: {what}")
+                  for a, b, what in zip(got, want,
+                                        ("d_yin", "d_tree", "loss")))
+        # the plain version's three products at these shapes
+        G, PL = tok.shape
+        yin = torch.randn((G, PL, D), generator=gen, device=dev)
+        ptv = torch.randn((G, PL * T, D), generator=gen, device=dev)
+        gmat = torch.randn((G, PL, PL * T), generator=gen, device=dev)
+
+        def products():
+            torch.bmm(yin, ptv.transpose(1, 2))
+            torch.bmm(gmat, ptv)
+            torch.bmm(gmat.transpose(1, 2), yin)
+
+        with f32_matmul():
+            k_ms, plain_ms = turns_ms(lambda: hs_block_grads(*args),
+                                      lambda: hs_block_grads_plain(*args))
+            lib_ms = median_ms(products)
+        nbytes, flops, scored = hs_kernel_work(tok, eff, points, window_ok,
+                                               dm, D)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / FP32_FLOP_PER_S * 1e3
+        bound = max(by_bytes, by_ops)
+        print(f"K10 {name}: V={V} G={G} PL={PL} T={T} D={D}, {scored} "
+              f"scored (pair, level) entries ({scored / (G * PL * PL * T):.4f}"
+              f" of the dense grid), {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP; in turns K10 {k_ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms; three bmm {lib_ms:.4f} ms; bound "
+              f"{bound:.4f} ms ({'bytes' if by_bytes >= by_ops else 'operations'}"
+              f"; {100 * bound / k_ms:.1f}% of it) [{card}]", flush=True)
+        record(f"hs_block_grads[hs step {name}]",
+               "graphembedding_tpu_torch/csrc/hs.cu",
+               "none (XLA einsums of graphembedding_tpu/train/hsoftmax.py)",
+               err, k_ms, plain_ms, bound, lib_ms,
+               "bytes" if by_bytes >= by_ops else "operations")
+        del args, got, again, want, yin, ptv, gmat, w_in, w_tree
+    torch.cuda.empty_cache()
+
+
 def hs_phases(dev, card, records, record):
     """Phases 13-14: four HS steps against plain ones with the tree scatter
     and gather timed, then the DeepWalk hs=1 path; appends the HS-shape K3
@@ -1599,6 +1744,7 @@ def hs_phases(dev, card, records, record):
         breakdown, device_events as profile_events)
     from graphembedding_tpu_torch.data import load_dataset
     from graphembedding_tpu_torch.eval.classify import Classifier
+    from graphembedding_tpu_torch.ops.hs import hs_block_grads
     from graphembedding_tpu_torch.ops.rows import (
         gather_rows, gather_rows_plain, scatter_add_rows,
         scatter_add_rows_plain, scatter_add_small)
@@ -1625,19 +1771,23 @@ def hs_phases(dev, card, records, record):
     print(f"HS shapes: V={V} NW={NW} Bw={geo.Bw} G={geo.G} PL={geo.PL} "
           f"T={T} D={D}: tokens {geo.G * geo.PL}, tree rows "
           f"{geo.G * geo.PL * T} a step", flush=True)
-    for k in (gather_rows, scatter_add_small, scatter_add_rows):
+    for k in (hs_block_grads, gather_rows, scatter_add_small,
+              scatter_add_rows):
         k.launches = 0
     outs = [hs.hs_block_chunk(w_in.clone(), w_tree.clone(), walks, points,
                               codes, eff, 0.025, 1e-4, 0, 1152.0,
                               block_walks=bw, window=W, ops=ops)
             for ops in (hs.KERNELS, hs.PLAIN)]
     torch.cuda.synchronize()
-    print(f"  launches in the four kernel steps: K3 {gather_rows.launches}, "
-          f"K4 {scatter_add_small.launches}, K2 {scatter_add_rows.launches}",
+    print(f"  launches in the four kernel steps: K10 "
+          f"{hs_block_grads.launches}, K3 {gather_rows.launches}, K4 "
+          f"{scatter_add_small.launches}, K2 {scatter_add_rows.launches}",
           flush=True)
-    if (gather_rows.launches, scatter_add_small.launches,
-            scatter_add_rows.launches) != (8, 8, 0):
-        fail("four HS steps: K3 and K4 should launch 8 times each, K2 never")
+    if (hs_block_grads.launches, gather_rows.launches,
+            scatter_add_small.launches, scatter_add_rows.launches) != (
+                4, 0, 8, 0):
+        fail("four HS steps: K10 should launch 4 times, K4 8, K3 and K2 "
+             "never")
     errs = [max_err(a, b, HS_RTOL, HS_ATOL, f"four HS steps: {n}")
             for a, b, n in zip(outs[0], outs[1],
                                ("w_in", "w_tree", "loss"))]
@@ -1647,7 +1797,8 @@ def hs_phases(dev, card, records, record):
           f"{HS_RTOL}, atol {HS_ATOL}); w_tree moved by "
           f"{float((outs[0][1] - w_tree).abs().max()):.3e}", flush=True)
 
-    # the first step's tree gather and scatter, as the step makes them
+    # the first step's scatters, as the step makes them, and the tree
+    # gather of its plain version's products
     seen = {}
 
     def keep(name, fn):
@@ -1658,13 +1809,12 @@ def hs_phases(dev, card, records, record):
         return wrapped
 
     window_ok, dm = sg.window_geometry(L, geo.PL, W, dev)
-    hs.hs_step(w_in.clone(), w_tree.clone(),
-               walks[:geo.Bw].reshape(geo.G, geo.PL), eff[0], points, codes,
+    tok = walks[:geo.Bw].reshape(geo.G, geo.PL)
+    hs.hs_step(w_in.clone(), w_tree.clone(), tok, eff[0], points, codes,
                0.025, window_ok=window_ok, dm=dm, update_cap=8.0,
                ops=hs.PLAIN._replace(
-                   gather=keep("gather", gather_rows_plain),
                    scatter_add=keep("scatter", scatter_add_rows_plain)))
-    _, g_ids = seen["gather"][1]
+    g_ids = tree_gather_ids(tok, points)
     n_inner = seen["scatter"][1][0][0]
     for call, ((rows, C), s_ids, s_grads) in zip(("token", "tree"),
                                                  seen["scatter"]):
@@ -1686,9 +1836,12 @@ def hs_phases(dev, card, records, record):
     print(f"  HS tree gather [{g_ids.numel()}, {D}] of [{n_inner}, {D}]: "
           f"{int(torch.unique(g_ids).numel())} distinct rows", flush=True)
 
+    # 34. K10 at the DeepWalk hs=1 step's shapes
+    hs_kernel_phase(dev, card, record, walks, V)
+
     # 14. the DeepWalk hs=1 path, counting launches
-    kernels = (gather_rows, scatter_add_small, scatter_add_rows,
-               sgns_block_grads)
+    kernels = (hs_block_grads, gather_rows, scatter_add_small,
+               scatter_add_rows, sgns_block_grads)
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
@@ -1706,8 +1859,9 @@ def hs_phases(dev, card, records, record):
     launches = {k.__name__: k.launches for k in kernels}
     print(f"DeepWalk hs=1 path launches: {launches}", flush=True)
     steps = model.losses.shape[0]
-    want = {"gather_rows": 2 * steps, "scatter_add_small": 2 * steps,
-            "scatter_add_rows": 0, "sgns_block_grads": 0}
+    want = {"hs_block_grads": steps, "gather_rows": 0,
+            "scatter_add_small": 2 * steps, "scatter_add_rows": 0,
+            "sgns_block_grads": 0}
     if steps != 1152 or launches != want:
         fail(f"DeepWalk hs=1: {steps} steps and launches {launches}, want "
              f"1152 steps and {want}")
@@ -1764,6 +1918,7 @@ def struc2vec_phase(dev, card):
     from graphembedding_tpu_torch.data import load_dataset
     from graphembedding_tpu_torch.eval.classify import Classifier
     from graphembedding_tpu_torch.models import struc2vec as s2v
+    from graphembedding_tpu_torch.ops.hs import hs_block_grads
     from graphembedding_tpu_torch.ops.rows import (
         gather_rows, scatter_add_rows, scatter_add_small)
     from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
@@ -1794,8 +1949,8 @@ def struc2vec_phase(dev, card):
     warm = min(timed_walks(run)[1] for _ in range(2))
 
     # the main path, counting launches
-    kernels = (gather_rows, scatter_add_small, scatter_add_rows,
-               sgns_block_grads)
+    kernels = (hs_block_grads, gather_rows, scatter_add_small,
+               scatter_add_rows, sgns_block_grads)
     with tempfile.TemporaryDirectory() as tmp, walks_through_kernels():
         for k in kernels:
             k.launches = 0
@@ -1826,8 +1981,9 @@ def struc2vec_phase(dev, card):
                         {"multilayer_walks": 2},
                         keep={"multilayer_walks": "multilayer_walks"})
     steps = model.losses.shape[0]
-    want = {"gather_rows": 2 * steps, "scatter_add_small": 2 * steps,
-            "scatter_add_rows": 0, "sgns_block_grads": 0}
+    want = {"hs_block_grads": steps, "gather_rows": 0,
+            "scatter_add_small": 2 * steps, "scatter_add_rows": 0,
+            "sgns_block_grads": 0}
     if steps != 320 or launches != want:
         fail(f"Struc2Vec: {steps} steps and launches {launches}, want 320 "
              f"HS steps and {want}")
@@ -1882,19 +2038,20 @@ def struc2vec_phase(dev, card):
 
 
 def no_kernel_launched(what, fn):
-    """fn(), failing if it launched any of K1-K5."""
+    """fn(), failing if it launched any of K1-K5 or K10."""
+    from graphembedding_tpu_torch.ops.hs import hs_block_grads
     from graphembedding_tpu_torch.ops.rows import (
         dma_gather_rows, gather_rows, scatter_add_rows, scatter_add_small)
     from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
 
     kernels = (sgns_block_grads, scatter_add_rows, gather_rows,
-               scatter_add_small, dma_gather_rows)
+               scatter_add_small, dma_gather_rows, hs_block_grads)
     for k in kernels:
         k.launches = 0
     out = fn()
     launched = {k.__name__: k.launches for k in kernels if k.launches}
     if launched:
-        fail(f"{what} launched {launched}; it runs none of K1-K5")
+        fail(f"{what} launched {launched}; it runs none of K1-K5, K10")
     return out
 
 
@@ -2119,17 +2276,20 @@ class Interrupt(Exception):
 
 
 def kernel_counts():
-    """The wrappers of K1-K4 by name."""
+    """The wrappers of K1-K4 and K10 by name."""
+    from graphembedding_tpu_torch.ops.hs import hs_block_grads
     from graphembedding_tpu_torch.ops.rows import (
         gather_rows, scatter_add_rows, scatter_add_small)
     from graphembedding_tpu_torch.ops.sgns import sgns_block_grads
 
     return {k.__name__: k for k in (sgns_block_grads, scatter_add_rows,
-                                    gather_rows, scatter_add_small)}
+                                    gather_rows, scatter_add_small,
+                                    hs_block_grads)}
 
 
 def counted(fn):
-    """(fn(), {kernel: launches in fn}) over K1-K4, counts set to 0 first."""
+    """(fn(), {kernel: launches in fn}) over K1-K4 and K10, counts set to 0
+    first."""
     kernels = kernel_counts()
     for k in kernels.values():
         k.launches = 0
@@ -2290,9 +2450,9 @@ def restart_phases(dev, card):
     walk_models = {}
     for hs, every, stop, per_step in ((0, 1, 2, {
             "sgns_block_grads": 1, "scatter_add_rows": 2, "gather_rows": 2,
-            "scatter_add_small": 0}), (1, 4, 7, {
-            "sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 2,
-            "scatter_add_small": 2})):
+            "scatter_add_small": 0, "hs_block_grads": 0}), (1, 4, 7, {
+            "sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 0,
+            "scatter_add_small": 2, "hs_block_grads": 1})):
         kw = dict(embed_size=128, window_size=5, iter=3, hs=hs)
         want = DeepWalk(ds.graph, walk_length=10, num_walks=80, device=dev)
         want.train(**kw)
@@ -2357,7 +2517,8 @@ def restart_phases(dev, card):
     undo()
     steps = m.losses.shape[0]
     expect = {"sgns_block_grads": 0, "scatter_add_rows": 0,
-              "gather_rows": 2 * steps, "scatter_add_small": 2 * steps}
+              "gather_rows": 2 * steps, "scatter_add_small": 2 * steps,
+              "hs_block_grads": 0}
     if not (steps == line_mod.CHUNK_STEPS
             and torch.equal(m.embedding_table, want.embedding_table)
             and torch.equal(m.context_emb, want.context_emb)):
@@ -2557,7 +2718,7 @@ def chunk_graph_phase(dev, card, blogcatalog):
     dw = DeepWalk(wiki.graph, walk_length=10, num_walks=80, device=dev)
     walk_tables = lambda m: (m.w_in, m.w_out)  # noqa: E731
     sgns_n = {"sgns_block_grads": 192, "scatter_add_rows": 384,
-              "gather_rows": 384, "scatter_add_small": 0}
+              "gather_rows": 384, "scatter_add_small": 0, "hs_block_grads": 0}
     with tempfile.TemporaryDirectory() as tmp:
         s2v = Struc2Vec(flight.graph, walk_length=10, num_walks=80,
                         workers=4, temp_path=tmp, device=dev)
@@ -2568,18 +2729,19 @@ def chunk_graph_phase(dev, card, blogcatalog):
         ("DeepWalk hs=1 on Wiki", wiki, lambda: dw, lambda m: m.train(
             embed_size=128, window_size=5, iter=3, hs=1), walk_tables,
          HS_MIN_MICRO_F1, {"sgns_block_grads": 0, "scatter_add_rows": 0,
-                           "gather_rows": 2304, "scatter_add_small": 2304}),
+                           "gather_rows": 0, "scatter_add_small": 2304,
+                           "hs_block_grads": 1152}),
         ("Struc2Vec on flight-brazil", flight, lambda: s2v,
          lambda m: m.train(embed_size=128, window_size=5, iter=5),
          walk_tables, S2V_MIN_MICRO_F1,
-         {"sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 640,
-          "scatter_add_small": 640}),
+         {"sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 0,
+          "scatter_add_small": 640, "hs_block_grads": 320}),
         ("LINE on Wiki", wiki, lambda: LINE(wiki.graph, embedding_size=128,
                                             order="second", device=dev),
          lambda m: m.train(batch_size=1024, epochs=50),
          lambda m: (m.second_emb, m.context_emb), LINE_MIN_MICRO_F1,
          {"sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 2048,
-          "scatter_add_small": 2048}),
+          "scatter_add_small": 2048, "hs_block_grads": 0}),
     ]
     # SDNE and the dense trainer: none of K1-K5 (want_n None)
     sdne_params = lambda m: list(m.net.parameters())  # noqa: E731
@@ -3061,12 +3223,15 @@ def large_v_hs_phase(dev, card, records, record, g):
         if form == "sparse":
             launches = {name: k.launches for name, k in kernels.items()}
             print(f"large V hs=1 main path launches: {launches}", flush=True)
-            if (launches["gather_rows"] == 0
+            if (launches["hs_block_grads"] == 0
                     or launches["scatter_add_rows"] == 0):
-                fail(f"large V hs=1: K2 or K3 never launched ({launches})")
+                fail(f"large V hs=1: K10 or K2 never launched ({launches})")
             if launches["scatter_add_small"] or launches["sgns_block_grads"]:
                 fail(f"large V hs=1: K4 or K1 launched ({launches}); both "
                      f"tables are above SMALL_V_ROWS = {SMALL_V_ROWS}")
+            if launches["gather_rows"]:
+                fail(f"large V hs=1: K3 launched ({launches}); K10 reads "
+                     f"the rows itself")
         out, warm = timed_walks(train)
         w_in, w_tree, losses, pairs = out
         if (tuple(w_in.shape) != (V, D) or tuple(w_tree.shape) != (V - 1, D)
@@ -3136,8 +3301,8 @@ def large_v_hs_phase(dev, card, records, record, g):
           f"torch.equal to the loop, launches {n_graph} both [{card}]",
           flush=True)
 
-    # the first step's scatters and tree gather, as the sparse step makes
-    # them
+    # the first step's scatters, as the sparse step makes them, and the
+    # tree gather of the plain version's products
     seen = {}
 
     def keep(name, fn):
@@ -3148,17 +3313,16 @@ def large_v_hs_phase(dev, card, records, record, g):
         return wrapped
 
     window_ok, dm = sg.window_geometry(L, geo.PL, W, dev)
-    hs.hs_step(w_in0.clone(), w_tree0.clone(),
-               sg.chunk_blocks(walks, 0, 1, geo)[0], eff[0], points, codes,
+    tok = sg.chunk_blocks(walks, 0, 1, geo)[0]
+    hs.hs_step(w_in0.clone(), w_tree0.clone(), tok, eff[0], points, codes,
                0.025, window_ok=window_ok, dm=dm, update_cap=8.0,
                sparse_cap=True, ops=hs.PLAIN._replace(
-                   gather=keep("gather", gather_rows_plain),
                    scatter_add=keep("scatter", scatter_add_rows_plain)))
     for call, ((rows, C), ids, grads) in zip(("token", "tree"),
                                              seen["scatter"]):
         hs_rows_phase(call, rows, C, ids, grads, dev, card, record)
         records[-1]["launches"] = launches["scatter_add_rows"]
-    _, g_ids = seen["gather"][1]
+    g_ids = tree_gather_ids(tok, points)
     del seen
     got = gather_rows(w_tree0, g_ids)
     torch.cuda.synchronize()
@@ -3206,7 +3370,7 @@ def large_v_hs_phase(dev, card, records, record, g):
             for x, y, name in zip(chunks_w[True][:3], chunks_w[False][:3],
                                   ("w_in", "w_tree", "loss"))]
     del chunks_w
-    print(f"Wiki HS chunk, 4 steps through K3 and K4: the sparse cap "
+    print(f"Wiki HS chunk, 4 steps through K10 and K4: the sparse cap "
           f"against the dense cap from the same tables and draws, max abs "
           f"err {max(errs):.3e} (rtol {rtol}, atol {atol}) [{card}]",
           flush=True)
@@ -3349,12 +3513,15 @@ def mesh_train(what, gate, train, model, ds, per_step):
 
 
 SGNS_STEP = {"sgns_block_grads": 1, "scatter_add_rows": 2,
-             "gather_rows": 1, "scatter_add_small": 0}  # rowshard
+             "gather_rows": 1, "scatter_add_small": 0,
+             "hs_block_grads": 0}  # rowshard
 DP_STEP = dict(SGNS_STEP, gather_rows=2)
-HS_STEP = {"sgns_block_grads": 0, "scatter_add_rows": 0, "gather_rows": 2,
-           "scatter_add_small": 2}
-LINE_STEP = HS_STEP  # order 'second': emb and ctx, a gather and a scatter
-NO_KERNEL = dict.fromkeys(HS_STEP, 0)
+# HS with no model axis: K10 and two scatters
+HS_STEP = dict(SGNS_STEP, sgns_block_grads=0, scatter_add_rows=0,
+               gather_rows=0, scatter_add_small=2, hs_block_grads=1)
+# LINE order 'second': emb and ctx, a gather and a scatter
+LINE_STEP = dict(HS_STEP, gather_rows=2, hs_block_grads=0)
+NO_KERNEL = dict.fromkeys(SGNS_STEP, 0)
 
 
 def wiki_draws(geo, S, V, K, seed, dev):

@@ -72,11 +72,16 @@ SIGNATURES = {
     # L, max_moves, stay_prob, draws, seed, out, stream
     "ge_walk_multilayer": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P,
                            _I64, _I, _I, _F, _P, _P, _P, _P],
+    # device, w_in, ld_in, w_tree, ld_tree, tok, eff, points, codes,
+    # window_ok, dm, d_yin, d_tree, parts, G, PL, D, T, vec, smem, stream
+    "ge_hs_block_grads": [_I, _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ge_error_string": [_I],
     # device: once a process and device, before a capture (`prepare`)
     "ge_prepare_sgns": [_I],
     "ge_prepare_rows": [_I],
     "ge_prepare_small": [_I],
+    "ge_prepare_hs": [_I],
 }
 
 RESTYPES = {"ge_error_string": ctypes.c_char_p,
@@ -200,7 +205,8 @@ def prepare(device_index: int) -> None:
     opted into and its resident blocks an SM read, so that a launch makes
     no host API call but the launch itself. Launches nothing."""
     lib = library()
-    for name in ("ge_prepare_sgns", "ge_prepare_rows", "ge_prepare_small"):
+    for name in ("ge_prepare_sgns", "ge_prepare_rows", "ge_prepare_small",
+                 "ge_prepare_hs"):
         check(getattr(lib, name)(device_index), name)
 
 

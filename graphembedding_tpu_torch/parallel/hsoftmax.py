@@ -11,11 +11,12 @@ dp SGNS mode (`parallel/sgns.py`):
   block on its own replicas, whose deltas since the last sync are summed
   every `sync_every` steps (default 4) and at the chunk's end.
 
-A step is the single-device `train.hsoftmax.hs_step` (K3 gathers; K4, or K2
-above `ops.rows.SMALL_V_ROWS` rows, by `ops.rows.scatter_add_table`), with
-the model-axis sum as its `reduce`, and the dense form of the cap whatever
-`HSTrainer(cap_mode=)` says: the JAX package's `sharded_hs_chunk` takes no
-`sparse_cap` either. The window draws `eff` differ by data
+A step is the single-device `train.hsoftmax.hs_step` (K4, or K2 above
+`ops.rows.SMALL_V_ROWS` rows, by `ops.rows.scatter_add_table`): its
+scoring is K10 where the mesh has no model axis, and with one the plain
+version's products (K3 gathers) with the model-axis sum as its `reduce`.
+The cap takes the dense form whatever `HSTrainer(cap_mode=)` says: the JAX
+package's `sharded_hs_chunk` takes no `sparse_cap` either. The window draws `eff` differ by data
 rank: the JAX body folds their key by the data index. A chunk's steps and
 syncs run through `train.chunk_graph.run_chunk` as the dp SGNS chunk's do
 (over NCCL one CUDA graph a chunk; `points` and `codes` constant inputs).

@@ -90,6 +90,7 @@ import time
 import torch
 
 from graphembedding_tpu_torch.kernels import build as kb
+from graphembedding_tpu_torch.ops.hs import hs_block_grads
 from graphembedding_tpu_torch.ops.rows import (
     dma_gather_rows,
     gather_rows,
@@ -101,7 +102,7 @@ from graphembedding_tpu_torch.utils.profiling import count, span
 
 # the kernels' wrappers, each counting its launches in `launches`
 COUNTERS = (sgns_block_grads, gather_rows, scatter_add_rows,
-            scatter_add_small, dma_gather_rows)
+            scatter_add_small, dma_gather_rows, hs_block_grads)
 
 
 class LaunchCounts:

@@ -12,13 +12,17 @@ over a Huffman tree built from the corpus counts (`build_huffman`): label
 inner-node row of the path.
 
 A step packs its block of walks as the SGNS step does (G groups of PL =
-P * L positions), gathers the centers' rows of `w_in` and the context
-paths' rows of `w_tree` (K3), scores every (center, context, tree level)
-with three batched products over the flattened n = m * T + t axis, and
-scatter-adds both gradients with the per-row update cap (K4 or K2 by
-`ops.rows.scatter_add_table`). The products run in full float32, as the
-JAX package's einsums ask: `hs_block_chunk` sets torch's float32 matmul
-precision to "highest" (no TF32) while it runs.
+P * L positions), scores each window pair (center, context) at each level
+of the context's tree path, and scatter-adds both gradients with the
+per-row update cap (K4 or K2 by `ops.rows.scatter_add_table`). The scoring
+is K10 (`ops.hs.hs_block_grads`: the window's pairs only, its tree rows
+read straight from `w_tree`), or, where a mesh's tensor-parallel step
+must complete partial logits before the sigmoid (`reduce`) and under the
+plain versions, its plain version: the centers' and paths' rows gathered
+(K3 on the card) and three batched products over the flattened n = m * T
++ t axis. Both run in full float32, as the JAX package's einsums ask:
+`hs_block_chunk` sets torch's float32 matmul precision to "highest" (no
+TF32) while it runs.
 
 The cap takes one of the JAX package's two forms (`HSTrainer(cap_mode=)`,
 picked by `train.skipgram.sparse_cap_for`: the sparse form from 2^16 nodes
@@ -45,11 +49,21 @@ place of the JAX function's heap and per-node Python lists.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from graphembedding_tpu_torch.ops.rows import ROW_KERNELS, ROW_PLAIN
+from graphembedding_tpu_torch.ops.hs import (
+    hs_block_grads,
+    hs_block_grads_plain,
+)
+from graphembedding_tpu_torch.ops.rows import (
+    gather_rows,
+    gather_rows_plain,
+    scatter_add_rows_plain,
+    scatter_add_table,
+)
 from graphembedding_tpu_torch.train.chunk_graph import run_chunk
 from graphembedding_tpu_torch.train.skipgram import (
     Resume,
@@ -159,9 +173,18 @@ def build_huffman(counts: np.ndarray):
     return P, C, depth
 
 
-# the row kernels a step runs (`ops.rows.RowOps`: gather, scatter-add), and
-# their plain versions, which the kernels are held against
-KERNELS, PLAIN = ROW_KERNELS, ROW_PLAIN
+class HSOps(NamedTuple):
+    """The kernels a step runs: row gather, row scatter-add, the scoring."""
+
+    gather: object
+    scatter_add: object
+    block_grads: object
+
+
+# the kernels, and their plain versions, which the kernels are held against
+KERNELS = HSOps(gather_rows, scatter_add_table, hs_block_grads)
+PLAIN = HSOps(gather_rows_plain, scatter_add_rows_plain,
+              hs_block_grads_plain)
 
 
 def sparse_capped_update(w_in, w_tree, tok, tree_ids, d_yin, d_tree, occ_t,
@@ -195,34 +218,27 @@ def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
 
     tok [G, PL] token ids (-1 pads), eff_b [G, PL] window draws, points /
     codes [V, T] the tree paths, lr a float or a 0-d float32 tensor of the
-    same value (the same bits). `reduce`, when given, completes partial
-    logits (over a column slice of the tables) before the sigmoid: the
-    mesh's tensor-parallel step sums them over its model axis. Returns
-    (loss, pairs) as 0-d tensors.
+    same value (the same bits). The gradients come from `ops.block_grads`
+    (K10 under KERNELS); `reduce`, when given, completes partial logits
+    (over a column slice of the tables) before the sigmoid, which only the
+    plain version's products allow: the mesh's tensor-parallel step sums
+    them over its model axis. Returns (loss, pairs) as 0-d tensors.
     """
-    G, PL = tok.shape
     V, D = w_in.shape
-    T = points.shape[1]
-    N = PL * T
     tok_ok = tok >= 0
     tok_safe = torch.where(tok_ok, tok, 0)
-    yin = ops.gather(w_in, tok_safe.reshape(-1)).view(G, PL, D)  # centers
     pts = points[tok_safe]  # [G, PL, T] context paths
-    label = 1.0 - codes[tok_safe]  # [G, PL, T]
     pts_ok = (pts >= 0) & tok_ok[:, :, None]
     pts_safe = torch.where(pts_ok, pts, 0)
-    ptv = ops.gather(w_tree, pts_safe.reshape(-1)).view(G, N, D)
-
     mask = (window_ok[None] & (dm[None] <= eff_b[:, :, None])
             & tok_ok[:, :, None] & tok_ok[:, None, :]).to(torch.float32)
-    # logits of every (center l, context m, level t) over n = m * T + t
-    logits = torch.bmm(yin, ptv.transpose(1, 2))  # [G, PL, N]
-    if reduce is not None:
-        logits = reduce(logits)
-    gate_n = (mask[:, :, :, None] * pts_ok[:, None, :, :]).reshape(G, PL, N)
-    gmat = (label.reshape(G, 1, N) - torch.sigmoid(logits)) * gate_n
-    d_yin = torch.bmm(gmat, ptv)  # [G, PL, D]
-    d_tree = torch.bmm(gmat.transpose(1, 2), yin)  # [G, N, D]
+    if reduce is None:
+        d_yin, d_tree, nll = ops.block_grads(w_in, w_tree, tok, eff_b,
+                                             points, codes, window_ok, dm)
+    else:
+        d_yin, d_tree, nll = hs_block_grads_plain(
+            w_in, w_tree, tok, eff_b, points, codes, window_ok, dm,
+            gather=ops.gather, reduce=reduce)
 
     # per-row accumulation cap. The gradients go through the scatter rule
     # as contiguous [N, D] rows (16-byte aligned where D % 4 == 0); the
@@ -247,21 +263,19 @@ def hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *, window_ok, dm,
     else:
         tbuf = ops.scatter_add(
             torch.zeros((V, D), dtype=torch.float32, device=w_in.device),
-            tok.reshape(-1), d_yin.reshape(-1, D))
+            tok.reshape(-1), d_yin)
         rbuf = ops.scatter_add(
             torch.zeros((w_tree.shape[0], D), dtype=torch.float32,
                         device=w_in.device),
-            tree_ids, d_tree.reshape(-1, D))
+            tree_ids, d_tree)
         tok_scale = (update_cap / occ_t.clamp(min=1.0)).clamp(max=1.0)
         tree_scale = (update_cap / occ_r.clamp(min=1.0)).clamp(max=1.0)
         # in place: the JAX function donates the tables
         w_in.add_(lr * tbuf * tok_scale[:, None])
         w_tree.add_(lr * rbuf * tree_scale[:, None])
 
-    sgn = 2.0 * label.reshape(G, 1, N) - 1.0
-    ll = F.logsigmoid(sgn * logits)
     pairs = mask.sum()
-    return -(ll * gate_n).sum() / pairs.clamp(min=1.0), pairs
+    return nll / pairs.clamp(min=1.0), pairs
 
 
 def _chunk_step(b, s, ops, *, update_cap, sparse_cap):
@@ -305,6 +319,8 @@ def hs_block_chunk(w_in, w_tree, walks, points, codes, eff, alpha, min_alpha,
             _chunk_step, S, {"w_in": w_in, "w_tree": w_tree}, inputs,
             ops=ops, plain=PLAIN, consts={"update_cap": float(update_cap),
                                           "sparse_cap": bool(sparse_cap)})
+    if ops.block_grads is hs_block_grads:
+        count("train.hs_kernel_steps", S)
     return w_in, w_tree, losses, pairs
 
 

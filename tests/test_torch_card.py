@@ -63,6 +63,10 @@ from graphembedding_tpu_torch.ops.rows import (
     sm_count,
     SMALL_V_ROWS,
 )
+from graphembedding_tpu_torch.ops.hs import (
+    hs_block_grads,
+    hs_block_grads_plain,
+)
 from graphembedding_tpu_torch.ops.sgns import (
     sgns_block_grads,
     sgns_block_grads_plain,
@@ -513,49 +517,39 @@ def riding_hs_step(w_in, w_tree, tok, eff_b, points, codes, lr, *,
                    window_ok, dm, update_cap, ops):
     """`train.hsoftmax.hs_step` as it was with the occupancy riding as a
     last gradient column ([N, D + 1] scatters, D + 1 = 129 at the slice),
-    kept here to hold the step with the occupancy apart against it bit for
-    bit (here on the card, tests/test_torch_hsoftmax.py on the CPU)."""
-    import torch.nn.functional as F
-
-    G, PL = tok.shape
+    its gradients and loss from the same `ops.block_grads` (K10 under the
+    kernels), kept here to hold the step with the occupancy apart against
+    it bit for bit (here on the card, tests/test_torch_hsoftmax.py on the
+    CPU)."""
     V, D = w_in.shape
-    T = points.shape[1]
-    N = PL * T
     tok_ok = tok >= 0
     tok_safe = torch.where(tok_ok, tok, 0)
-    yin = ops.gather(w_in, tok_safe.reshape(-1)).view(G, PL, D)
     pts = points[tok_safe]
-    label = 1.0 - codes[tok_safe]
     pts_ok = (pts >= 0) & tok_ok[:, :, None]
-    pts_safe = torch.where(pts_ok, pts, 0)
-    ptv = ops.gather(w_tree, pts_safe.reshape(-1)).view(G, N, D)
     mask = (window_ok[None] & (dm[None] <= eff_b[:, :, None])
             & tok_ok[:, :, None] & tok_ok[:, None, :]).to(torch.float32)
-    logits = torch.bmm(yin, ptv.transpose(1, 2))
-    gate_n = (mask[:, :, :, None] * pts_ok[:, None, :, :]).reshape(G, PL, N)
-    gmat = (label.reshape(G, 1, N) - torch.sigmoid(logits)) * gate_n
-    d_yin = torch.bmm(gmat, ptv)
-    d_tree = torch.bmm(gmat.transpose(1, 2), yin)
+    d_yin, d_tree, nll = ops.block_grads(w_in, w_tree, tok, eff_b, points,
+                                         codes, window_ok, dm)
     n_pairs_ctx = mask.sum(1)
     tweight = (n_pairs_ctx[:, :, None] * pts_ok).reshape(-1, 1)
-    ones = torch.ones((G * PL, 1), dtype=torch.float32, device=w_in.device)
+    ones = torch.ones((tok.numel(), 1), dtype=torch.float32,
+                      device=w_in.device)
     tbuf = ops.scatter_add(
         torch.zeros((V, D + 1), dtype=torch.float32, device=w_in.device),
-        tok.reshape(-1), torch.cat([d_yin.reshape(-1, D), ones], 1))
+        tok.reshape(-1), torch.cat([d_yin, ones], 1))
     tbuf[0, D] += (tok < 0).sum()
     rbuf = ops.scatter_add(
         torch.zeros((w_tree.shape[0], D + 1), dtype=torch.float32,
                     device=w_in.device),
         torch.where(pts_ok, pts, -1).reshape(-1),
-        torch.cat([d_tree.reshape(-1, D), tweight], 1))
+        torch.cat([d_tree, tweight], 1))
     tok_scale = (update_cap / tbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
     tree_scale = (update_cap / rbuf[:, D:].clamp(min=1.0)).clamp(max=1.0)
     w_in.add_(lr * tbuf[:, :D] * tok_scale)
     w_tree.add_(lr * rbuf[:, :D] * tree_scale)
-    sgn = 2.0 * label.reshape(G, 1, N) - 1.0
-    ll = F.logsigmoid(sgn * logits)
     pairs = mask.sum()
-    return -(ll * gate_n).sum() / pairs.clamp(min=1.0), pairs
+    return nll / pairs.clamp(min=1.0), pairs
+
 
 def hs_tree_ids(rng, n=70_560, v=2404, T=14):
     """Ids like the DeepWalk hs=1 step's tree scatter: G * PL contexts of T
@@ -610,11 +604,106 @@ def test_hs_tree_gather(cuda):
     assert torch.equal(got, gather_rows_plain(table, ids))
 
 
+def hs_kernel_inputs(dev, *, V, D, L, G, W, T, seed, scale=1.0):
+    """A hs=1 step's inputs for K10: G groups of P = max(128 // L, 1)
+    walks of L (every 7th dead-ended after 6 tokens, holes as subsampling
+    leaves them), window draws in {1..W}, paths of 1..T levels (-1
+    padded, the first T deep) with 0/1 codes, w_in as a fit starts it and
+    w_tree ~ N(0, 0.05), both times `scale`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P = max(128 // L, 1)
+    PL = P * L
+    tok = torch.randint(0, V, (G * P, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    tok[::7, min(6, L - 1):] = -1  # dead-ended walks
+    tok[3::11, L // 2] = -1  # holes
+    tok = tok.reshape(G, PL)
+    eff = sg.window_draws(gen, (G, PL), W)
+    depth = torch.randint(1, T + 1, (V,), generator=gen, device=dev)
+    depth[0] = T
+    on = torch.arange(T, device=dev)[None] < depth[:, None]
+    points = torch.where(on, torch.randint(
+        0, V - 1, (V, T), generator=gen, device=dev, dtype=torch.int32),
+        -1).to(torch.int32)
+    codes = ((torch.rand((V, T), generator=gen, device=dev) < 0.5)
+             & on).float()
+    w_in = (torch.rand((V, D), generator=gen, device=dev) - 0.5) / D * scale
+    w_tree = torch.randn((V - 1, D), generator=gen, device=dev) * (
+        0.05 * scale)
+    ok, dm = sg.window_geometry(L, PL, W, dev)
+    return w_in, w_tree, tok, eff, points, codes, ok, dm
+
+
+# the Wiki step, the BlogCatalog and YouTube cells' steps (T = 15, 21),
+# a deep tree, D not 128 (16-byte and 4-byte rows), more centers a
+# context than a tile holds (L = 40, window 10), one walk a group (L = 80),
+# a window longer than the walk (L = 3), logits far from 0
+HS_KERNEL_CASES = {
+    "wiki": dict(V=2405, D=128, L=10, G=42, W=5, T=14),
+    "blogcatalog": dict(V=10_312, D=128, L=10, G=42, W=5, T=15),
+    "youtube": dict(V=1_138_499, D=128, L=10, G=42, W=5, T=21),
+    "deep": dict(V=4000, D=128, L=10, G=42, W=5, T=44),
+    "d100": dict(V=2405, D=100, L=10, G=42, W=5, T=14),
+    "d30": dict(V=500, D=30, L=10, G=8, W=5, T=9),
+    "long walks": dict(V=3000, D=64, L=40, G=6, W=10, T=12),
+    "one walk a group": dict(V=3000, D=128, L=80, G=4, W=10, T=12),
+    "short walks": dict(V=700, D=32, L=3, G=4, W=5, T=10),
+    "saturated": dict(V=2405, D=128, L=10, G=42, W=5, T=14, scale=40.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HS_KERNEL_CASES))
+def test_hs_kernel_matches_plain(cuda, case):
+    """K10 against its plain version (full float32 bmm): d_yin and d_tree
+    rtol 1e-5 with atol 2e-6 of the largest entry, the loss rtol 1e-5
+    (sums in another order); rows no pair reaches (pads, levels past a
+    path) exactly zero; the same bits on a second launch; one launch a
+    call."""
+    inputs = hs_kernel_inputs(cuda, seed=21, **HS_KERNEL_CASES[case])
+    before = hs_block_grads.launches
+    got = hs_block_grads(*inputs)
+    again = hs_block_grads(*inputs)
+    assert hs_block_grads.launches == before + 2
+    want = hs_block_grads_plain(*inputs)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for g, w in zip(got[:2], want[:2]):
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-5,
+                                   atol=2e-6 * float(np.abs(w).max()))
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
+    _, _, tok, _, points, _, _, _ = inputs
+    tok_ok = tok >= 0
+    reach = (points[torch.where(tok_ok, tok, 0)] >= 0) & tok_ok[..., None]
+    assert not got[1][~reach.reshape(-1)].any()
+    assert not got[0][~tok_ok.reshape(-1)].any()
+    assert float(got[0].abs().sum()) > 0 and float(got[1].abs().sum()) > 0
+
+
+def test_hs_kernel_refuses_what_it_does_not_take(cuda):
+    """The wrapper raises on a CPU tensor beside CUDA ones, a wrong dtype,
+    a non-contiguous input and a shape beyond 227 KB of shared memory."""
+    inputs = list(hs_kernel_inputs(cuda, seed=22, **HS_KERNEL_CASES["wiki"]))
+    for i, bad in ((2, inputs[2].cpu()), (3, inputs[3].long()),
+                   (5, inputs[5].t().contiguous().t())):
+        args = list(inputs)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            hs_block_grads(*args)
+    args = list(inputs)
+    args[0] = torch.zeros((2405, 2048), device=cuda)
+    args[1] = torch.zeros((2404, 2048), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        hs_block_grads(*args)
+
+
 def test_four_hs_steps_match_plain(cuda):
     """Four HS steps at the DeepWalk hs=1 Wiki widths (Bw = 504: G = 42
-    groups of PL = 120, D = 128, V = 2405) through K3 and K4 against the
+    groups of PL = 120, D = 128, V = 2405) through K10 and K4 against the
     plain versions, from the same tables and draws: rtol 1e-5, atol 1e-6;
-    two launches of each kernel a step."""
+    a step launches K10 once and K4 twice, and no K3 (K10 reads the tree
+    rows itself)."""
     V, D, L, NW, W = 2405, 128, 10, 5040, 5
     gen = torch.Generator(device=cuda).manual_seed(15)
     walks = torch.randint(0, V, (NW, L), generator=gen, device=cuda,
@@ -628,13 +717,13 @@ def test_four_hs_steps_match_plain(cuda):
                * W).to(torch.int32).clamp(0, W - 1)
     w_in = (torch.rand((V, D), generator=gen, device=cuda) - 0.5) / D
     w_tree = torch.randn((V - 1, D), generator=gen, device=cuda) * 0.05
-    before = (gather_rows.launches, scatter_add_small.launches)
+    kernels = (hs_block_grads, gather_rows, scatter_add_small)
+    before = [k.launches for k in kernels]
     out = [hs.hs_block_chunk(w_in.clone(), w_tree.clone(), walks, points,
                              codes, eff, 0.025, 1e-4, 0, 1152.0,
                              block_walks=504, window=W, ops=ops)
            for ops in (hs.KERNELS, hs.PLAIN)]
-    assert (gather_rows.launches, scatter_add_small.launches) == (
-        before[0] + 8, before[1] + 8)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 0, 8]
     torch.cuda.synchronize()
     for a, b in zip(out[0][:3], out[1][:3]):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
@@ -646,9 +735,10 @@ def test_four_hs_steps_match_plain(cuda):
 
 def test_hs_step_equals_riding_column_form_on_card(cuda):
     """Four HS steps at the DeepWalk hs=1 Wiki widths through the kernels
-    (K3, K4) with the occupancy apart equal four steps of the form in
+    (K10, K4) with the occupancy apart equal four steps of the form in
     which it rode as a last gradient column ([N, 129] scatters), bit for
-    bit: w_in, w_tree, the losses and the pair counts."""
+    bit: w_in, w_tree, the losses and the pair counts, both forms taking
+    their gradients from K10."""
     V, D, L, NW, W = 2405, 128, 10, 5040, 5
     gen = torch.Generator(device=cuda).manual_seed(16)
     walks = torch.randint(0, V, (NW, L), generator=gen, device=cuda,
@@ -684,10 +774,10 @@ def test_hs_step_equals_riding_column_form_on_card(cuda):
 def test_four_sparse_hs_steps_match_plain(cuda, V):
     """Four HS steps with the sparse cap (`hs.sparse_capped_update`: the
     pre-scaled rows scattered into the live tables) at the DeepWalk hs=1
-    Wiki widths through K3 and K4 (V = 2405, within SMALL_V_ROWS) or K2
+    Wiki widths through K10 and K4 (V = 2405, within SMALL_V_ROWS) or K2
     (V = 200,000, above it) against the plain versions, from the same
     tables and draws: rtol 1e-4, atol 1e-6 (the sparse form's parity
-    tolerance); two K3 and two scatter launches a step."""
+    tolerance); one K10 launch, no K3 and two scatter launches a step."""
     D, L, W = 128, 10, 5
     NW = max(5040, V)
     gen = torch.Generator(device=cuda).manual_seed(17)
@@ -703,15 +793,15 @@ def test_four_sparse_hs_steps_match_plain(cuda, V):
     w_in = (torch.rand((V, D), generator=gen, device=cuda) - 0.5) / D
     w_tree = torch.randn((V - 1, D), generator=gen, device=cuda) * 0.05
     scatter = scatter_add_small if V <= SMALL_V_ROWS else scatter_add_rows
-    before = (gather_rows.launches, scatter.launches)
+    kernels = (hs_block_grads, gather_rows, scatter)
+    before = [k.launches for k in kernels]
     out = [hs.hs_block_chunk(w_in.clone(), w_tree.clone(), walks, points,
                              codes, eff, 0.025, 1e-4, 0, 1152.0,
                              block_walks=504, window=W, sparse_cap=True,
                              ops=ops)
            for ops in (hs.KERNELS, hs.PLAIN)]
     torch.cuda.synchronize()
-    assert (gather_rows.launches, scatter.launches) == (
-        before[0] + 8, before[1] + 8)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 0, 8]
     for a, b in zip(out[0][:3], out[1][:3]):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-4, atol=1e-6)
@@ -1052,7 +1142,7 @@ class StopAt:
 
 @pytest.mark.parametrize("hs", [0, 1])
 def test_resume_bit_identical_on_card(cuda, tmp_path, hs):
-    """DeepWalk (SGNS: K1-K3; hs=1: K3, K4) interrupted after chunk 2 of 3
+    """DeepWalk (SGNS: K1-K3; hs=1: K10, K4) interrupted after chunk 2 of 3
     (a checkpoint every chunk), then resumed in a fresh model: the tables
     of an uninterrupted train, bit for bit, with the kernels launched for
     the two chunks that remained."""
@@ -1067,14 +1157,14 @@ def test_resume_bit_identical_on_card(cuda, tmp_path, hs):
     with pytest.raises(Interrupt):
         m.train(metrics=StopAt(2), **kw, **ck)
     m = DeepWalk(g, walk_length=10, num_walks=10, device=cuda)
-    kernels = ((gather_rows, scatter_add_small) if hs else
+    kernels = ((hs_block_grads, scatter_add_small) if hs else
                (sgns_block_grads, scatter_add_rows, gather_rows))
     before = [k.launches for k in kernels]
     m.train(**kw, **ck)
     torch.cuda.synchronize()
     steps = m.losses.shape[0]
     assert steps == 2 * want.losses.shape[0] // 3
-    per_step = (2, 2) if hs else (1, 2, 2)
+    per_step = (1, 2) if hs else (1, 2, 2)
     assert [k.launches - b for k, b in zip(kernels, before)] == [
         n * steps for n in per_step]
     assert torch.equal(m.w_in, want.w_in)
@@ -1247,7 +1337,7 @@ def test_chunk_graph_equals_the_loop_on_card(cuda, kind, monkeypatch):
            "line second": lambda: line_chunks(cuda, "second"),
            "line first": lambda: line_chunks(cuda, "first")}[kind]()
     kernels = (sgns_block_grads, gather_rows, scatter_add_rows,
-               scatter_add_small)
+               scatter_add_small, hs_block_grads)
     chunk_graph.release()
     got = {}
     for graphs in (False, True, True):  # the loop; a capture; replays only
