@@ -1,2 +1,3 @@
 """The benchmark of graphembedding_tpu_torch on an NVIDIA H100: whole
-DeepWalk and Node2Vec fits (see `harness.py`, `BENCHMARK.json`)."""
+fits of the port's models, one module a model family in `models/` (see
+`harness.py`, `BENCHMARK.json`)."""

@@ -1,5 +1,5 @@
-"""mfu (%): the model FLOPs of the window's fits (`work.flops_per_pair`
-of the nominal pairs) over the window's seconds, as a share of the card's
+"""mfu (%): the model FLOPs of the window's fits (the model module's
+`model_flops`) over the window's seconds, as a share of the card's
 float32 peak."""
 
 

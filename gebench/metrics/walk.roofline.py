@@ -1,15 +1,12 @@
 """walk.roofline (%): the walk layer's bound over the device time of the
-operations launched in walk spans. The bound is the CSR read once and the
-corpus written once (`work.walk_bytes`) at the card's HBM peak, for each
-fit of the window."""
-
-from gebench import work
+operations launched in walk spans. The bound is the bytes the walk must
+move (the model module's `walk_bytes`: the CSR read once and the corpus
+written once) at the card's HBM peak, for each fit of the window."""
 
 
 def read(run):
     busy = run.busy_in("walk")
-    if not run.traced or busy <= 0:
+    nbytes = run.walk_bytes()
+    if not run.traced or busy <= 0 or nbytes is None:
         return None
-    bound = (work.walk_bytes(run.cell.config, run.V, run.E) * run.fits
-             / run.peaks["hbm_bytes_per_s"])
-    return 100.0 * bound / busy
+    return 100.0 * nbytes / run.peaks["hbm_bytes_per_s"] / busy

@@ -1,4 +1,5 @@
-"""The card check and the device trace of a run.
+"""The card check, the device trace of a run, and the program's own
+recording (`graphembedding_tpu_torch.utils.profiling.record`).
 
 `require_card` is copied from `graphembedding_tpu_torch/benchmarks/
 common.py`, and `busy_us` and the by-name totals of `top_ops` from
@@ -144,3 +145,22 @@ def top_ops(ops: Ops, n):
     heavy = np.argsort(-us, kind="stable")[:n]
     return [[ops.names[i][:120], float(us[i]) / 1e6] for i in heavy
             if us[i] > 0]
+
+
+def program_record():
+    """The program's `record()`, or None where the program has none."""
+    try:
+        from graphembedding_tpu_torch.utils.profiling import record
+    except ImportError:
+        return None
+    return record
+
+
+def op_spans(rec, ops: Ops):
+    """Each operation's innermost program span holding its launch, from
+    the program's recording `rec`: an array of span names, '' where none
+    does or the launch is unknown."""
+    launch = np.where(np.isnan(ops.launch), -1.0, np.round(ops.launch * 1e3))
+    at = rec.innermost(launch.astype(np.int64))  # -1: before every span
+    names = np.array([s.name for s in rec.spans] + [""])
+    return names[np.where(at >= 0, at, len(rec.spans))]

@@ -23,7 +23,13 @@ def test_a_short_run_on_the_card(cuda):
     assert {"walk.share", "walk.roofline", "train.roofline",
             "train.idle_share", "device.idle_share", "mfu"} <= set(
                 r["metrics"])
-    for name in ("walk.roofline", "train.roofline", "mfu"):
+    # the program's spans and counters, read where it recorded them
+    assert {"train.tables_ms", "train.step_roofline", "train.prepare_ms",
+            "chunk.copy_ms", "train.step_use", "chunk.hit_rate"} <= set(
+                r["metrics"])
+    assert "train.huffman_ms" not in r["metrics"]  # SGNS builds no tree
+    for name in ("walk.roofline", "train.roofline", "mfu",
+                 "train.step_roofline"):
         assert 0 < r["metrics"][name]["value"] <= 100
     assert len(r["breakdown"]["device_ops"]) <= 10
     assert list(r)[-1] == "check"

@@ -7,8 +7,9 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import rehearse
-from gebench import check, harness
+from conftest import ROOT, rehearse
+from gebench import harness
+from gebench.models import walk_skipgram
 from graphembedding_tpu_torch.models import deepwalk, node2vec
 from graphembedding_tpu_torch.train import hsoftmax, skipgram
 
@@ -27,16 +28,17 @@ def test_sound_runs_are_correct():
     ("deepwalk-hs.youtube", dict(num_walks=4, iters=2))])
 def test_control_in_the_programs_place(workload, size, monkeypatch):
     """The reference computed in TF32 stands in for the trainer."""
-    plain = harness.train_model
+    module = harness.load_cell(ROOT, workload).model
+    plain = module.train
 
     def control(model, cfg):
         plain(model, cfg)  # the fit's shapes; its tables are replaced
-        w_in, w_out, _ = check.reference_fit(
+        w_in, w_out, _ = walk_skipgram.reference_fit(
             model.walks, model.graph.num_nodes, cfg, model.seed,
             matmul="tf32")
         model.w_in, model.w_out = w_in, w_out
 
-    monkeypatch.setattr(harness, "train_model", control)
+    monkeypatch.setattr(module, "train", control)
     r = rehearse(workload, **size)
     assert r["correct"] is False
     assert r["check"]["table_err"]["value"] > r["check"]["table_err"][

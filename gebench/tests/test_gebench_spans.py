@@ -1,10 +1,16 @@
-"""`trace_cell.py`'s readings of the program's spans and counters on a
-known run: hand-made spans, counters and device operations."""
+"""The readers of the program's spans and counters (`metrics/`, which
+`trace_cell.py`'s readings are) on a known run: hand-made spans, counters
+and device operations handed to `Run` as a traced run hands them."""
+
+import contextlib
+import time
 
 import numpy as np
 import pytest
+import torch
 from graphembedding_tpu_torch.utils.profiling import Recording, Span
 
+from conftest import ROOT, tiny
 from gebench import harness, profiling, trace_cell
 
 PEAKS = {"fp32_flops_per_s": 1e12, "hbm_bytes_per_s": 1e9}
@@ -13,7 +19,8 @@ PEAKS = {"fp32_flops_per_s": 1e12, "hbm_bytes_per_s": 1e9}
 def cell():
     cfg = {"num_walks": 2, "iter": 3, "walk_length": 10, "window_size": 5,
            "embed_size": 128, "negative": 5, "objective": "sgns"}
-    return harness.Cell("c", 1, cfg, {}, {}, ["pairs_per_s"], {})
+    return harness.Cell("c", 1, cfg, {}, {}, ["pairs_per_s"], {},
+                        harness.model_module("Node2Vec"))
 
 
 def host_spans():
@@ -65,15 +72,33 @@ def known_run():
 
 COUNTERS = {"train.steps": 128, "train.blocks": 102, "chunk.hits": 3,
             "chunk.captures": 1}
+# at the window's start: a capture and the warm-up's steps of the set-up
+BEFORE = {"train.steps": 64, "train.blocks": 51, "chunk.captures": 1}
+
+
+def recorded_run(traced=True):
+    """The known run as `run_cell` leaves it: the recording's spans from
+    the window's first on, and the counters' growth from `BEFORE`."""
+    run, rec = known_run(), recording()
+    if not traced:
+        run.ops = run.kind = None
+    setup = Span("train", None, None, {})
+    setup.start, setup.end = int(-2e9), int(-1e9)
+    rec.spans.insert(0, setup)
+    rec.counters = {n: v + BEFORE.get(n, 0) for n, v in COUNTERS.items()}
+    harness.take_recording(run, rec, BEFORE, 1)
+    return run
 
 
 def test_readings_on_a_known_run():
-    run, rec = known_run(), recording()
-    labels = trace_cell.op_spans(rec, run.ops)
-    assert labels.tolist() == ["train.tables", "train.prepare",
-                               "chunk.copy_in", "chunk.replay",
-                               "chunk.copy_out"] * 2 + [""]
-    got = trace_cell.readings(run, rec.spans, COUNTERS, labels)
+    run = recorded_run()
+    assert run.counters == COUNTERS
+    assert run.program_spans[0].start == 1e9
+    assert run.op_span.tolist() == ["train.tables", "train.prepare",
+                                     "chunk.copy_in", "chunk.replay",
+                                     "chunk.copy_out"] * 2 + [""]
+    got = {n: harness.metric_reader(n)(run) for n in trace_cell.READINGS}
+    assert trace_cell.readings(run) == got
     assert got["train.tables_ms"] == pytest.approx(200.0)
     assert got["train.huffman_ms"] == pytest.approx(100.0)
     pairs = 2 * 1000 * 3 * 46 * 2
@@ -86,16 +111,21 @@ def test_readings_on_a_known_run():
 
 
 def test_readings_are_none_without_a_trace_or_a_recording():
-    run, rec = known_run(), recording()
-    assert set(trace_cell.readings(run, None, {}).values()) == {None}
+    # a traced run without a recording (`--trace 0`, or a program with no
+    # `record()`): the fields stay None
+    run = known_run()
+    assert (run.program_spans, run.counters, run.op_span) == (None,) * 3
+    assert set(trace_cell.readings(run).values()) == {None}
     # spans and counters, but no device trace
-    got = trace_cell.readings(run, rec.spans, COUNTERS)
+    got = trace_cell.readings(recorded_run(traced=False))
     assert got["train.tables_ms"] == pytest.approx(200.0)
+    assert got["chunk.hit_rate"] == pytest.approx(75.0)
     assert [got[n] for n in ("train.step_roofline", "train.prepare_ms",
                              "chunk.copy_ms")] == [None, None, None]
     # a recording with none of the spans or counters
-    empty = trace_cell.readings(run, [], {}, np.array([""] * len(run.ops)))
-    assert set(empty.values()) == {None}
+    run.program_spans, run.counters = [], {}
+    run.op_span = np.array([""] * len(run.ops))
+    assert set(trace_cell.readings(run).values()) == {None}
 
 
 def test_idle_gaps_name_the_innermost_program_span():
@@ -122,3 +152,53 @@ def test_idle_seconds_by_program_span():
     assert got == pytest.approx({"train": 3.71, "(none)": 1.41,
                                  "chunk.replay": 0.6,
                                  "train.tables.huffman": 0.38})
+
+
+class HostOnlyTrace:
+    """`profiling.Trace` on a machine without a card: one device operation
+    a host clock's instant, launched where it ran."""
+
+    def start(self):
+        self.t0 = time.time_ns() / 1e3
+
+    def stop(self):
+        t1 = time.time_ns() / 1e3
+        self.ops = profiling.Ops.from_list(
+            [("op", t, t + 1.0, t) for t in np.linspace(self.t0, t1, 50)])
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_only_a_traced_run_records_the_program(trace, monkeypatch):
+    recorded = []
+    plain = profiling.program_record
+
+    def spy():
+        record = plain()
+
+        @contextlib.contextmanager
+        def watched():
+            with record() as rec:
+                recorded.append(rec)
+                yield rec
+
+        return watched
+
+    monkeypatch.setattr(profiling, "program_record", spy)
+    monkeypatch.setattr(profiling, "Trace", HostOnlyTrace)
+    cell = tiny(harness.load_cell(ROOT, "deepwalk-hs.blogcatalog"))
+    r = harness.run_cell(cell, 2**31 + 5, 0.2, trace, torch.device("cpu"),
+                         "cpu", time.perf_counter(),
+                         log=lambda *a, **k: None)
+    assert r["correct"] is True
+    assert len(recorded) == int(trace)
+    if trace:
+        # the program's spans and counters reach the readers
+        got = {n: r["metrics"].get(n, {}).get("value")
+               for n in trace_cell.READINGS}
+        assert got["train.tables_ms"] > 0 and got["train.huffman_ms"] > 0
+        assert 0 < got["train.step_use"] <= 100
+        # no chunk graph without a card
+        assert got["chunk.hit_rate"] is None
+        # the whole window's spans, not the set-up's
+        fits = r["attempted"]
+        assert sum(s.name == "train" for s in recorded[0].spans) == fits + 1

@@ -1,11 +1,18 @@
 """The benchmark's arithmetic on small known cases: Huffman code lengths,
-the rooflines, mfu, the idle shares, and operations by launching span."""
+the rooflines, mfu, the idle shares, and operations by launching span;
+and the work and check of each cell's rehearsal against the fit and check
+written out from the port's API and the reference alone."""
 
 import numpy as np
 import pytest
+import torch
 
-from gebench import harness, profiling, work
+from conftest import ROOT, rehearse, tiny
+from gebench import graphgen, harness, profiling
+from gebench.models import walk_skipgram
 from gebench.reference import tables
+from gebench.reference import train as ref_train
+from gebench.reference import walks as ref_walks
 
 PEAKS = {"fp32_flops_per_s": 1e12, "hbm_bytes_per_s": 1e9}
 
@@ -23,8 +30,8 @@ def test_huffman_code_lengths(weights, lengths):
 
 def test_mean_code_length_weights_by_degree():
     # degrees 1, 2, 4, 8: lengths 3, 3, 2, 1; (3 + 6 + 8 + 8) / 15
-    assert work.mean_code_length(np.array([1, 2, 4, 8])) == pytest.approx(
-        25 / 15)
+    assert walk_skipgram.mean_code_length(
+        np.array([1, 2, 4, 8])) == pytest.approx(25 / 15)
 
 
 def test_huffman_code_paths_root_first():
@@ -39,7 +46,8 @@ def test_huffman_code_paths_root_first():
 def cell(objective="sgns"):
     cfg = {"num_walks": 2, "iter": 3, "walk_length": 10, "window_size": 5,
            "embed_size": 128, "negative": 5, "objective": objective}
-    return harness.Cell("c", 1, cfg, {}, {}, ["pairs_per_s"], {})
+    return harness.Cell("c", 1, cfg, {}, {}, ["pairs_per_s"], {},
+                        harness.model_module("DeepWalk"))
 
 
 def spans():
@@ -109,3 +117,74 @@ def test_busy_time_is_the_union_of_intervals():
     ops = profiling.Ops.from_list([("a", 0, 3, 0), ("b", 1, 2, 0),
                                    ("a", 4, 5, 0)])
     assert profiling.top_ops(ops, 10) == [["a", 4e-6], ["b", 1e-6]]
+
+
+CELLS = ["node2vec.blogcatalog", "deepwalk-hs.youtube", "node2vec.youtube",
+         "deepwalk-hs.blogcatalog"]
+
+
+def written_out_fit(cfg, traffic, seed):
+    """(V, E, check values) of one fit from `seed`, made straight from the
+    port's model API and judged straight by the reference: what a cell's
+    walk model ran and its check read before the model modules."""
+    from graphembedding_tpu_torch import DeepWalk, Graph, Node2Vec
+
+    cpu = torch.device("cpu")
+    row_ptr, col = graphgen.synthetic_csr(
+        traffic["nodes"], traffic["avg_degree"], traffic["graph_seed"], cpu)
+    graph = Graph.from_csr(row_ptr.numpy(), col.numpy(), directed=False)
+    kw = dict(walk_length=cfg["walk_length"], num_walks=cfg["num_walks"],
+              seed=seed, device=cpu)
+    model = (Node2Vec(graph, p=cfg["p"], q=cfg["q"], **kw)
+             if cfg["walk"] == "node2vec" else DeepWalk(graph, **kw))
+    train = dict(embed_size=cfg["embed_size"],
+                 window_size=cfg["window_size"], iter=cfg["iter"],
+                 alpha=cfg["alpha"], min_alpha=cfg["min_alpha"],
+                 sample=cfg["sample"])
+    hs = cfg["objective"] == "hs"
+    model.train(**train, **({"hs": 1} if hs else
+                            {"negative": cfg["negative"]}))
+    csr = ref_walks.Csr(row_ptr, col)
+    law = torch.Generator().manual_seed(harness.derive_seed(20231, 4, 0))
+    sched = cfg["schedule"]
+    ref_kw = dict(D=cfg["embed_size"], window=cfg["window_size"],
+                  epochs=cfg["iter"], seed=seed + 1,
+                  sched=ref_train.Schedule(
+                      block_walks=sched["block_walks"],
+                      chunk_steps=sched["chunk_steps"],
+                      update_cap=sched["update_cap"], alpha=cfg["alpha"],
+                      min_alpha=cfg["min_alpha"], sample=cfg["sample"],
+                      k_shared=sched.get("k_shared", 64),
+                      neg_share_packs=sched.get("neg_share_packs", 4),
+                      upscale=sched.get("upscale", True)))
+    V = csr.V
+    r_in, r_out, r_in0 = (
+        ref_train.hs_fit(model.walks, V, **ref_kw) if hs else
+        ref_train.sgns_fit(model.walks, V, negative=cfg["negative"],
+                           **ref_kw))
+    err = max(float(torch.linalg.vector_norm(model.w_in - r_in)
+                    / torch.linalg.vector_norm(r_in - r_in0)),
+              float(torch.linalg.vector_norm(model.w_out - r_out)
+                    / torch.linalg.vector_norm(r_out)))
+    return V, int(col.shape[0]), {
+        "bad_hops": ref_walks.bad_hops(model.walks, csr, cfg["num_walks"],
+                                       cfg["walk_length"]),
+        "law_z": ref_walks.law_z(model.walks, csr, cfg["walk"],
+                                 cfg.get("p", 1.0), cfg.get("q", 1.0),
+                                 20000, law),
+        "table_err": err}
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_a_rehearsal_reads_the_written_out_work_and_check(workload):
+    """One fit in the window (0 s): the fit of seed derive_seed(20231, 2,
+    0) is the one judged."""
+    cell = tiny(harness.load_cell(ROOT, workload))
+    cfg = cell.config
+    V, E, want = written_out_fit(cfg, cell.traffic,
+                                 harness.derive_seed(20231, 2, 0))
+    assert cell.model.nominal_pairs(cfg, V, E) == pytest.approx(
+        cfg["num_walks"] * V * cfg["iter"] * 46.0)
+    r = rehearse(workload, seed=20231, seconds=0.0)
+    assert r["attempted"] == 1 and r["correct"] is True
+    assert {n: c["value"] for n, c in r["check"].items()} == want

@@ -16,12 +16,14 @@ the idle gaps labelled as `harness.idle_gaps` labels them, each with
 the innermost program span open at its start, and the idle seconds by
 that span.
 
-`readings` of the window's spans and the counters' growth over it, "a
+`readings`: the per-layer metrics that read the program's recording,
+each by its reader (`metrics/<name>.py`), which `run.py --trace 1`
+reports too; of the window's spans and the counters' growth over it, "a
 fit" being one of the window's fits:
 - train.tables_ms, train.huffman_ms: wall ms a fit of `train.tables`
   and `train.tables.huffman` (host clock);
-- train.step_roofline (%): `metrics/train.roofline.py`'s bound over the
-  device time launched in `chunk.replay`;
+- train.step_roofline (%): `train.roofline`'s bound over the device time
+  launched in `chunk.replay`;
 - train.prepare_ms: device ms a fit launched in `train.prepare` and
   `train.draws`;
 - chunk.copy_ms: device ms a fit launched in `chunk.copy_in` and
@@ -46,71 +48,18 @@ import sys  # noqa: E402
 import numpy as np  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+READINGS = ("train.tables_ms", "train.huffman_ms", "train.step_roofline",
+            "train.prepare_ms", "chunk.copy_ms", "train.step_use",
+            "chunk.hit_rate")
 
 
-def program_record():
-    """The program's `record()`, or None where the program has none."""
-    try:
-        from graphembedding_tpu_torch.utils.profiling import record
-    except ImportError:
-        return None
-    return record
+def readings(run):
+    """The readings of the module's docstring, each by its reader
+    (`metrics/<name>.py`) on the run's program spans, counters and
+    operations' innermost spans."""
+    from gebench import harness
 
-
-def op_spans(rec, ops):
-    """Each operation's innermost program span holding its launch: an
-    array of span names, '' where none does or the launch is unknown."""
-    launch = np.where(np.isnan(ops.launch), -1.0, np.round(ops.launch * 1e3))
-    at = rec.innermost(launch.astype(np.int64))  # -1: before every span
-    names = np.array([s.name for s in rec.spans] + [""])
-    return names[np.where(at >= 0, at, len(rec.spans))]
-
-
-def readings(run, spans, counters, labels=None):
-    """The readings of the module's docstring: `spans` the program's spans
-    of the window, `counters` their growth over it, `labels` each of
-    `run.ops`' innermost span (`op_spans`) or None without a trace."""
-    from gebench import profiling, work
-
-    out = dict.fromkeys(("train.tables_ms", "train.huffman_ms",
-                         "train.step_roofline", "train.prepare_ms",
-                         "chunk.copy_ms", "train.step_use",
-                         "chunk.hit_rate"))
-    if spans is None or not run.fits:
-        return out
-
-    def wall_ms(name):
-        got = [s.end - s.start for s in spans if s.name == name]
-        return sum(got) / 1e6 / run.fits if got else None
-
-    out["train.tables_ms"] = wall_ms("train.tables")
-    out["train.huffman_ms"] = wall_ms("train.tables.huffman")
-    if counters.get("train.steps"):
-        out["train.step_use"] = (100.0 * counters.get("train.blocks", 0)
-                                 / counters["train.steps"])
-    looked = counters.get("chunk.hits", 0) + counters.get("chunk.captures", 0)
-    if looked:
-        out["chunk.hit_rate"] = 100.0 * counters.get("chunk.hits", 0) / looked
-    if labels is None or not run.traced:
-        return out
-
-    def busy_s(*names):
-        at = np.isin(labels, names)
-        return profiling.busy_us(run.ops.start[at], run.ops.end[at]) / 1e6
-
-    replay, flops = busy_s("chunk.replay"), run.model_flops()
-    if replay > 0 and flops is not None:
-        bound = max(flops / run.peaks["fp32_flops_per_s"],
-                    work.train_bytes(run.cell.config, run.V) * run.fits
-                    / run.peaks["hbm_bytes_per_s"])
-        out["train.step_roofline"] = 100.0 * bound / replay
-    if np.isin(labels, ("train.prepare", "train.draws")).any():
-        out["train.prepare_ms"] = (busy_s("train.prepare", "train.draws")
-                                   * 1e3 / run.fits)
-    if np.isin(labels, ("chunk.copy_in", "chunk.copy_out")).any():
-        out["chunk.copy_ms"] = (busy_s("chunk.copy_in", "chunk.copy_out")
-                                * 1e3 / run.fits)
-    return out
+    return {n: harness.metric_reader(n)(run) for n in READINGS}
 
 
 def labelled_gaps(run, rec, t0, t1, n):
@@ -150,36 +99,23 @@ def main(argv=None):
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import graphembedding_tpu_torch  # noqa: F401
-    import torch
 
-    from gebench import graphgen, harness, profiling, work
+    from gebench import harness, profiling
 
     imports_s = time.perf_counter() - STARTED
     cell = harness.load_cell(ROOT, args.workload)
     device, card = profiling.require_card(cell.chips)
-    cfg = cell.config
-    record = program_record() if args.record else None
+    record = profiling.program_record() if args.record else None
     out = {"cell": cell.name, "seed": args.seed, "card": card,
            "record": record is not None}
 
-    def sync():
-        torch.cuda.synchronize(device)
-
     with (record() if record else contextlib.nullcontext()) as rec:
         t = time.perf_counter()
-        V, deg = cell.traffic["nodes"], cell.traffic["avg_degree"]
-        row_ptr, col = graphgen.synthetic_csr(
-            V, deg, cell.traffic["graph_seed"], device)
-        graph = graphembedding_tpu_torch.Graph.from_csr(
-            row_ptr.cpu().numpy(), col.cpu().numpy(), directed=False)
+        row_ptr, col, graph = harness.cell_graph(cell, device)
         graph_s = time.perf_counter() - t
         t = time.perf_counter()
-        model = harness.build_model(graph, cfg, harness.derive_seed(
-            args.seed, 3), device)
-        harness.train_model(model, cfg)
-        sync()
+        harness.warm_up(cell, graph, args.seed, device)
         warm_s = time.perf_counter() - t
-        del model
         split = {"setup_s": time.perf_counter() - STARTED,
                  "imports_s": imports_s, "graph_s": graph_s,
                  "warmup_fit_s": warm_s}
@@ -192,60 +128,34 @@ def main(argv=None):
             before, first = dict(rec.counters), len(rec.spans)
         out["setup"] = split
         print("set-up: " + json.dumps(split), file=sys.stderr, flush=True)
-
-        spans, fit_s = [], []
         tracer = profiling.Trace()
-        tracer.start()
-        sync()
-        t_start = time.perf_counter()
-        us_start = time.time_ns() / 1e3
-        k = 0
-        while True:
-            s = harness.derive_seed(args.seed, 2, k)
-            a = time.time_ns() / 1e3
-            model = harness.build_model(graph, cfg, s, device)
-            sync()
-            b = time.time_ns() / 1e3
-            harness.train_model(model, cfg)
-            sync()
-            c = time.time_ns() / 1e3
-            now = time.perf_counter()
-            spans.append({"fit": k, "walk": (a, b), "train": (b, c)})
-            fit_s.append((c - a) / 1e6)
-            model = None
-            k += 1
-            if now >= t_start + args.seconds:
-                break
-        window_s = now - t_start
-        us_end = time.time_ns() / 1e3
-    tracer.stop()
+        window = harness.run_window(cell, graph, args.seed, args.seconds,
+                                    device, tracer)
+    fit_s, (us_start, us_end) = window.fit_s, window.us
     q = statistics.quantiles(fit_s, n=4) if len(fit_s) > 1 else fit_s * 3
-    out.update(fits=len(fit_s), window_s=window_s, fit_s={
+    out.update(fits=len(fit_s), window_s=window.seconds, fit_s={
         "median": statistics.median(fit_s), "q1": q[0], "q3": q[2],
         "min": min(fit_s), "max": max(fit_s)})
-    out["pairs_per_s"] = work.nominal_pairs(cfg, V) * len(fit_s) / window_s
-    run = harness.Run(cell, V, int(col.shape[0]), window_s, spans)
-    if cfg["objective"] == "hs":
-        run.mean_code_length = work.mean_code_length(
-            np.diff(row_ptr.cpu().numpy()))
-    run.ops = tracer.ops
-    run.kind = harness.label_ops(run.ops, spans)
-    run.busy_s = profiling.busy_us(run.ops.start, run.ops.end) / 1e6
+    run = harness.Run(cell, cell.traffic["nodes"], int(col.shape[0]),
+                      window.seconds, window.spans)
+    del window
+    out["pairs_per_s"] = run.nominal_pairs() / run.window_s
+    harness.take_trace(run, tracer)
+    if rec is not None:
+        harness.take_recording(run, rec, before, first)
+    run.constants = cell.model.run_constants(cell.config, row_ptr, col)
     out["busy_s"] = run.busy_s
     out["metrics"] = {n: harness.metric_reader(n)(run)
                       for n in cell.per_layer}
+    out["readings"] = readings(run)
     if rec is None:
-        out["readings"] = readings(run, None, {})
-        out["idle_gaps"] = harness.idle_gaps(run.ops, spans, us_start,
+        out["idle_gaps"] = harness.idle_gaps(run.ops, run.spans, us_start,
                                              us_end, 10)
     else:
-        window = [s for s in rec.spans[first:] if s.end is not None]
-        counters = {n: v - before.get(n, 0) for n, v in rec.counters.items()}
-        labels = op_spans(rec, run.ops)
-        out["counters"] = counters
-        out["readings"] = readings(run, window, counters, labels)
+        labels = run.op_span
+        out["counters"] = run.counters
         by = {}
-        for s in window:
+        for s in run.program_spans:
             by[s.name] = by.get(s.name, 0.0) + (s.end - s.start) / 1e9
         out["span_wall_s"] = by
         out["device_s_by_span"] = {
@@ -264,7 +174,7 @@ def main(argv=None):
         out["top_ops"] = top
         out["idle_gaps"] = labelled_gaps(run, rec, us_start, us_end, 10)
         out["idle_s_by_span"] = idle_by_span(run, rec, us_start, us_end)
-    print(f"fits: {len(fit_s)} in {window_s:.4f} s; {out['fit_s']}",
+    print(f"fits: {len(fit_s)} in {run.window_s:.4f} s; {out['fit_s']}",
           file=sys.stderr, flush=True)
     line = json.dumps(out)
     if args.out:
