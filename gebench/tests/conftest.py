@@ -15,6 +15,20 @@ if ROOT not in sys.path:
 
 from gebench import harness  # noqa: E402
 
+# The names the tests' own model, configuration, traffic, cell and
+# per-layer metric take, and a model that has no module: no model of the
+# port and no configuration, traffic, cell or metric of the tree takes
+# them (a test holds them to that), so a copy of the tree that gains them
+# overwrites nothing.
+FIXTURE = {"model": "GebenchStub", "config": "gebench-stub",
+           "traffic": "gebench-stub-graph",
+           "cell": "gebench-stub.gebench-stub-graph",
+           "metric": "gebench-stub.reading",
+           "absent_model": "GebenchAbsent", "absent_config": "gebench-absent"}
+# The walk family's cells, each judged by `walk_skipgram.judge`.
+WALK_CELLS = ["node2vec.blogcatalog", "deepwalk-hs.youtube",
+              "node2vec.youtube", "deepwalk-hs.blogcatalog"]
+
 
 def tiny(cell, nodes=300, avg_degree=8, num_walks=4, iters=2):
     """The cell at a size the CPU runs in a second or two."""

@@ -6,23 +6,96 @@ import json
 import os
 import re
 import shutil
-import textwrap
 import time
 
 import pytest
 import torch
 
-from conftest import ROOT, rehearse
+import contract
+import stub_model
+from conftest import FIXTURE, ROOT, WALK_CELLS, rehearse
 from gebench import harness
 from gebench.models import walk_skipgram
 
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+NAME = contract.NAME
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
 def bench():
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
-        return json.load(f)
+    return contract.bench(ROOT)
+
+
+def copy_of_the_tree(tmp_path):
+    """BENCHMARK.json and gebench/ as they are, under `tmp_path`."""
+    shutil.copytree(os.path.join(ROOT, "gebench"), tmp_path / "gebench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
+    return str(tmp_path)
+
+
+def tree_digests(root):
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            if "__pycache__" not in d:
+                path = os.path.join(d, f)
+                with open(path, "rb") as fh:
+                    out[os.path.relpath(path, root)] = hashlib.sha256(
+                        fh.read()).hexdigest()
+    return out
+
+
+def reexport(names):
+    """A model module's text that re-exports `names` of the stub."""
+    return ('"""The tests\' stub model (gebench/tests/stub_model.py)."""\n'
+            f"from stub_model import {', '.join(names)}  # noqa: F401\n")
+
+
+def add_cell(root, model, config, traffic, module_text,
+             limits=(("embed_gap", 1e-5),)):
+    """A cell of the model `model` on a tiny graph, added to the copy at
+    `root` as new files (`module_text` its model module) and entries
+    appended to its BENCHMARK.json. Returns the cell's name."""
+    cell = f"{config}.{traffic}"
+    b = contract.bench(root)
+    source = "https://github.com/shenweichen/GraphEmbedding"
+    b["configs"].append({"name": config, "source": source, "reduced": [],
+                         "file": f"gebench/configs/{config}.json",
+                         "why": "a test's fixture"})
+    b["workloads"].append({"name": cell, "config": config,
+                           "traffic": traffic, "chips": 1,
+                           "why": "a tiny graph"})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(b, f)
+    files = {
+        ("models", model.lower() + ".py"): module_text,
+        ("configs", config + ".json"): json.dumps(
+            {"name": config, "source": source, "model": model,
+             "hidden_size": [16, 8], "epochs": 2}),
+        ("cells", cell + ".json"): json.dumps({"limits": dict(limits)}),
+        ("traffic", traffic + ".json"): json.dumps(
+            {"name": traffic, "nodes": 200, "avg_degree": 6,
+             "graph_seed": 1})}
+    for parts, text in files.items():
+        path = os.path.join(root, "gebench", *parts)
+        assert not os.path.exists(path), path
+        with open(path, "w") as f:
+            f.write(text)
+    return cell
+
+
+def assert_only_added(root, before, old):
+    """Every file of `before` is byte-identical but BENCHMARK.json, which
+    only gained entries."""
+    after = tree_digests(root)
+    assert {k: after[k] for k in before if k != "BENCHMARK.json"} == {
+        k: v for k, v in before.items() if k != "BENCHMARK.json"}
+    b = contract.bench(root)
+    for key, entries in old.items():
+        if isinstance(entries, list):
+            assert b[key][:len(entries)] == entries
+        else:
+            assert b[key] == entries
 
 
 def test_names_and_units_use_the_allowed_characters():
@@ -47,155 +120,91 @@ def test_names_and_units_use_the_allowed_characters():
 
 
 def test_every_config_traffic_cell_and_metric_is_found_by_name():
+    """Every cell, whatever its model, keeps the contract."""
+    assert contract.problems(ROOT) == []
+
+
+def test_the_walk_family_keeps_its_own_checks():
+    """The cells judged by `walk_skipgram.judge`, today's four among them:
+    walks of 10, its three checks, the Huffman build's reader where
+    hs=1."""
+    assert set(WALK_CELLS) <= set(contract.walk_cells(ROOT))
+    assert contract.walk_problems(ROOT) == []
+
+
+def test_the_fixture_names_are_no_real_names():
+    from graphembedding_tpu_torch import __all__ as port_names
+
     b = bench()
-    for c in b["configs"]:
-        path = os.path.join(ROOT, c["file"])
-        assert c["file"].startswith("gebench/") and os.path.exists(path)
-        with open(path) as f:
-            assert json.load(f)["source"] == c["source"]
-    cells = {w["name"] for w in b["workloads"]}
-    for m in b["per_layer"]:
-        assert set(m["workloads"]) <= cells, m["name"]
-    for w in b["workloads"]:
-        cell = harness.load_cell(ROOT, w["name"])
-        assert cell.config["walk_length"] == 10
-        assert cell.traffic["name"] == w["traffic"]
-        assert set(cell.limits) == set(cell.model.CHECKS) == {
-            "bad_hops", "law_z", "table_err"}
-        assert cell.end_to_end == ["pairs_per_s", "setup_s"]
-        assert cell.per_layer == {m["name"]: m["unit"]
-                                  for m in b["per_layer"]
-                                  if w["name"] in m["workloads"]}
-        # the Huffman build is hs=1's alone
-        assert ("train.huffman_ms" in cell.per_layer) == (
-            cell.config["objective"] == "hs")
-        for name in cell.per_layer:
-            assert callable(harness.metric_reader(name))
+    models = {n.lower() for n in port_names}
+    models |= {os.path.splitext(f)[0] for f in os.listdir(
+        os.path.join(ROOT, "gebench", "models"))}
+    real = {c["name"] for c in b["configs"]}
+    real |= {w[k] for w in b["workloads"] for k in ("name", "traffic")}
+    real |= {m["name"] for m in b["end_to_end"] + b["per_layer"]}
+    for d in ("configs", "cells", "traffic", "metrics"):
+        real |= {os.path.splitext(f)[0] for f in os.listdir(
+            os.path.join(ROOT, "gebench", d))}
+    assert {"sdne", "line", "struc2vec"} <= models
+    for key, name in FIXTURE.items():
+        assert NAME.match(name), key
+        assert name.lower() not in models and name not in real, key
 
 
 def test_a_traffic_file_added_to_a_copy_becomes_a_cell(tmp_path):
     """No code edit: a new traffic file and a workload entry run."""
-    shutil.copytree(os.path.join(ROOT, "gebench"), tmp_path / "gebench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    copy_of_the_tree(tmp_path)
     b = bench()
-    b["workloads"].append({"name": "node2vec.tiny", "config": "node2vec",
-                           "traffic": "tiny", "chips": 1,
-                           "why": "a tiny graph"})
+    traffic = FIXTURE["traffic"]
+    b["workloads"].append({"name": f"node2vec.{traffic}",
+                           "config": "node2vec", "traffic": traffic,
+                           "chips": 1, "why": "a tiny graph"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
-    (tmp_path / "gebench" / "traffic" / "tiny.json").write_text(json.dumps(
-        {"name": "tiny", "nodes": 200, "avg_degree": 6, "graph_seed": 1}))
+    (tmp_path / "gebench" / "traffic" / f"{traffic}.json").write_text(
+        json.dumps({"name": traffic, "nodes": 200, "avg_degree": 6,
+                    "graph_seed": 1}))
     # no cell file: no cut, and no limits until its readings set them, so
     # only calibrate.py's way of loading it takes it
     with pytest.raises(SystemExit, match="no limit for"):
-        harness.load_cell(str(tmp_path), "node2vec.tiny")
-    cell = harness.load_cell(str(tmp_path), "node2vec.tiny", limits=False)
+        harness.load_cell(str(tmp_path), f"node2vec.{traffic}")
+    cell = harness.load_cell(str(tmp_path), f"node2vec.{traffic}",
+                             limits=False)
     assert cell.traffic["nodes"] == 200 and cell.config["num_walks"] == 80
     assert cell.config["iter"] == 3 and cell.limits == {}
     with pytest.raises(SystemExit):
         harness.load_cell(str(tmp_path), "node2vec.absent")
 
 
-SDNE_MODULE = '''
-    """SDNE at a size the CPU runs: a test's model module, not one of the
-    benchmark's."""
-    import torch
+@pytest.mark.parametrize("model", [FIXTURE["model"], "SDNE", "LINE",
+                                   "Struc2Vec"])
+def test_a_model_the_benchmark_does_not_run_becomes_a_cell(model, tmp_path):
+    """No code edit: a model that no cell runs becomes a runnable cell by
+    a model module (the stub, which trains the port's SDNE whatever name
+    it stands under), a configuration, a cell file, a traffic file and
+    the entries that name them, under the tests' own names or under the
+    lower-case name of a model the port has; the copy then keeps the
+    whole contract. Once the tree has that model's own module, a cell of
+    the tree runs it and keeps the contract instead."""
+    module = os.path.join(ROOT, "gebench", "models", model.lower() + ".py")
+    if os.path.exists(module):
+        runs = [w["name"] for w in bench()["workloads"]
+                if os.path.abspath(harness.load_cell(
+                    ROOT, w["name"]).model.__file__) == module]
+        assert runs, f"no cell runs {os.path.relpath(module, ROOT)}"
+        assert contract.problems(ROOT) == []
+        return
+    if model != FIXTURE["model"]:
+        from graphembedding_tpu_torch import __all__ as port_names
 
-    CHECKS = ("embed_gap",)
-
-
-    def build(graph, cfg, seed, device):
-        from graphembedding_tpu_torch import SDNE
-
-        return SDNE(graph, hidden_size=cfg["hidden_size"], seed=seed,
-                    device=device)
-
-
-    def train(fit, cfg):
-        fit.train_sparse(epochs=cfg["epochs"])
-
-
-    def run_constants(cfg, row_ptr, col):
-        return {}
-
-
-    def nominal_pairs(cfg, V, E):
-        return V * V * cfg["epochs"]
-
-
-    def model_flops(cfg, V, E, constants):
-        return None
-
-
-    def walk_bytes(cfg, V, E):
-        return None
-
-
-    def train_bytes(cfg, V, E):
-        return None
-
-
-    def outputs(fit):
-        return ({k: v.detach().clone() for k, v in
-                 fit.net.state_dict().items()}, fit.embedding_table)
-
-
-    def judge(outputs, fit_seed, cfg, csr, law_seed):
-        """The largest gap of the trained embeddings from the encoder
-        recomputed in plain torch on the dense adjacency (a repeated edge
-        counted each time), relative to the largest embedding."""
-        params, table = outputs
-        x = torch.zeros(csr.V, csr.V)
-        x.index_put_((torch.repeat_interleave(torch.arange(csr.V), csr.deg),
-                      csr.col), torch.ones(csr.col.shape), accumulate=True)
-        for i in range(len(cfg["hidden_size"])):
-            x = torch.relu(x @ params[f"enc.{i}.w"] + params[f"enc.{i}.b"])
-        return {"embed_gap": float((table - x).abs().max()
-                                   / x.abs().max())}
-'''
-
-
-def tree_digests(root):
-    out = {}
-    for d, _, files in os.walk(root):
-        for f in files:
-            if "__pycache__" not in d:
-                path = os.path.join(d, f)
-                with open(path, "rb") as fh:
-                    out[os.path.relpath(path, root)] = hashlib.sha256(
-                        fh.read()).hexdigest()
-    return out
-
-
-def test_a_model_the_benchmark_does_not_run_becomes_a_cell(tmp_path):
-    """No code edit: SDNE, which no cell runs, becomes a runnable cell by
-    a model module, a configuration, a cell file, a traffic file and the
-    entries that name them."""
-    shutil.copytree(os.path.join(ROOT, "gebench"), tmp_path / "gebench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+        assert model in port_names
+    config = FIXTURE["config"] if model == FIXTURE["model"] else model.lower()
+    root = copy_of_the_tree(tmp_path)
     old = bench()
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(old))
-    before = tree_digests(tmp_path)
-    b = json.loads(json.dumps(old))
-    b["configs"].append({"name": "sdne", "source": "https://github.com/"
-                         "shenweichen/GraphEmbedding", "reduced": [],
-                         "file": "gebench/configs/sdne.json",
-                         "why": "a test's fixture"})
-    b["workloads"].append({"name": "sdne.tiny", "config": "sdne",
-                           "traffic": "tiny", "chips": 1,
-                           "why": "a tiny graph"})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
-    here = tmp_path / "gebench"
-    (here / "models" / "sdne.py").write_text(
-        textwrap.dedent(SDNE_MODULE).lstrip())
-    (here / "configs" / "sdne.json").write_text(json.dumps(
-        {"name": "sdne", "source": b["configs"][-1]["source"],
-         "model": "SDNE", "hidden_size": [16, 8], "epochs": 2}))
-    (here / "cells" / "sdne.tiny.json").write_text(json.dumps(
-        {"limits": {"embed_gap": 1e-5}}))
-    (here / "traffic" / "tiny.json").write_text(json.dumps(
-        {"name": "tiny", "nodes": 200, "avg_degree": 6, "graph_seed": 1}))
+    before = tree_digests(root)
+    with open(stub_model.__file__) as f:
+        name = add_cell(root, model, config, FIXTURE["traffic"], f.read())
 
-    cell = harness.load_cell(str(tmp_path), "sdne.tiny")
+    cell = harness.load_cell(root, name)
     assert cell.model.CHECKS == ("embed_gap",)
     r = harness.run_cell(cell, 2**31 + 12345, 0.05, False,
                          torch.device("cpu"), "cpu", time.perf_counter(),
@@ -203,32 +212,89 @@ def test_a_model_the_benchmark_does_not_run_becomes_a_cell(tmp_path):
     assert r["correct"] is True, r["check"]
     assert r["check"]["embed_gap"]["limit"] == 1e-5
     assert r["metrics"]["pairs_per_s"]["value"] > 0
-    after = tree_digests(tmp_path)
-    assert {k: after[k] for k in before if k != "BENCHMARK.json"} == {
-        k: v for k, v in before.items() if k != "BENCHMARK.json"}
-    # BENCHMARK.json only gained entries
-    for key, entries in old.items():
-        if isinstance(entries, list):
-            assert b[key][:len(entries)] == entries
-        else:
-            assert b[key] == entries
+    assert_only_added(root, before, old)
+    assert contract.problems(root) == []
+    assert contract.walk_cells(root) == contract.walk_cells(ROOT)
+    assert set(WALK_CELLS) <= set(contract.walk_cells(root))
+    assert contract.walk_problems(root) == []
+
+
+@pytest.mark.parametrize("lacks", ["judge", "limit", "workloads"])
+def test_the_contract_finds_what_a_new_cell_lacks(lacks, tmp_path):
+    """A module without `judge`, a cell file without a limit for one of
+    its CHECKS, or a per-layer entry without the list of the cells it is
+    read in, is a problem."""
+    root = copy_of_the_tree(tmp_path)
+    names = [n for n in contract.INTERFACE + ("CHECKS",) if n != lacks]
+    name = add_cell(root, FIXTURE["model"], FIXTURE["config"],
+                    FIXTURE["traffic"], reexport(names),
+                    limits=() if lacks == "limit" else
+                    (("embed_gap", 1e-5),))
+    if lacks == "workloads":
+        assert contract.problems(root) == []  # sound until the entry comes
+        metric = FIXTURE["metric"]
+        b = contract.bench(root)
+        b["per_layer"].append({
+            "name": metric, "unit": "ms", "better": "lower",
+            "source": "program_span", "layer": "a test's fixture",
+            "moves": "pairs_per_s"})
+        with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+            json.dump(b, f)
+        with open(os.path.join(root, "gebench", "metrics",
+                               metric + ".py"), "w") as f:
+            f.write("def read(run):\n    return None\n")
+    found = contract.problems(root)
+    want = {"judge": f"cell {name}: no function judge",
+            "limit": f"cell {name}: ",
+            "workloads": f"metric {FIXTURE['metric']}: no list"}[lacks]
+    assert any(p.startswith(want) for p in found), found
+    if lacks == "limit":
+        assert any("no limit for" in p for p in found), found
+    if lacks != "workloads":
+        assert all(p.startswith(f"cell {name}: ") for p in found), found
+
+
+@pytest.mark.parametrize("change, want", [
+    ({"walk_length": 20}, "walk_length 20"),
+    ({"objective": None}, "no objective")], ids=["walk_length", "objective"])
+def test_the_walk_check_finds_what_a_walk_config_breaks(change, want,
+                                                        tmp_path):
+    """A walk config whose walks are not of 10, or that states no
+    objective, is a problem of the walk family's check alone."""
+    root = copy_of_the_tree(tmp_path)
+    path = os.path.join(root, "gebench", "configs", "node2vec.json")
+    with open(path) as f:
+        config = json.load(f)
+    config.update(change)
+    with open(path, "w") as f:
+        json.dump({k: v for k, v in config.items() if v is not None}, f)
+    assert contract.problems(root) == []
+    found = contract.walk_problems(root)
+    assert found and all(want in p for p in found), found
+    assert {p.split(":")[0] for p in found} == {
+        f"cell {w['name']}" for w in bench()["workloads"]
+        if w["config"] == "node2vec"}
 
 
 def test_a_model_without_a_module_fails_at_load(tmp_path):
-    shutil.copytree(os.path.join(ROOT, "gebench"), tmp_path / "gebench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    copy_of_the_tree(tmp_path)
+    model, config = FIXTURE["absent_model"], FIXTURE["absent_config"]
     b = bench()
-    b["configs"].append({"name": "line", "source": "https://example.org",
-                         "reduced": [], "file": "gebench/configs/line.json",
+    b["configs"].append({"name": config, "source": "https://example.org",
+                         "reduced": [],
+                         "file": f"gebench/configs/{config}.json",
                          "why": "no module"})
-    b["workloads"].append({"name": "line.blogcatalog", "config": "line",
+    b["workloads"].append({"name": f"{config}.blogcatalog", "config": config,
                            "traffic": "blogcatalog", "chips": 1,
                            "why": "no module"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
-    (tmp_path / "gebench" / "configs" / "line.json").write_text(
-        json.dumps({"name": "line", "model": "LINE"}))
-    with pytest.raises(SystemExit, match="gebench/models/line.py"):
-        harness.load_cell(str(tmp_path), "line.blogcatalog")
+    (tmp_path / "gebench" / "configs" / f"{config}.json").write_text(
+        json.dumps({"name": config, "model": model}))
+    with pytest.raises(SystemExit,
+                       match=f"gebench/models/{model.lower()}.py"):
+        harness.load_cell(str(tmp_path), f"{config}.blogcatalog")
+    assert f"{config}.blogcatalog: no model module" in " ".join(
+        contract.problems(str(tmp_path)))
 
 
 def test_nominal_pairs_match_a_hand_count():

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT, rehearse, tiny
+from conftest import ROOT, WALK_CELLS, rehearse, tiny
 from gebench import graphgen, harness, profiling
 from gebench.models import walk_skipgram
 from gebench.reference import tables
@@ -119,10 +119,6 @@ def test_busy_time_is_the_union_of_intervals():
     assert profiling.top_ops(ops, 10) == [["a", 4e-6], ["b", 1e-6]]
 
 
-CELLS = ["node2vec.blogcatalog", "deepwalk-hs.youtube", "node2vec.youtube",
-         "deepwalk-hs.blogcatalog"]
-
-
 def written_out_fit(cfg, traffic, seed):
     """(V, E, check values) of one fit from `seed`, made straight from the
     port's model API and judged straight by the reference: what a cell's
@@ -175,7 +171,7 @@ def written_out_fit(cfg, traffic, seed):
         "table_err": err}
 
 
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", WALK_CELLS)
 def test_a_rehearsal_reads_the_written_out_work_and_check(workload):
     """One fit in the window (0 s): the fit of seed derive_seed(20231, 2,
     0) is the one judged."""
